@@ -1,0 +1,144 @@
+"""Batched interleaved-rANS encode (kernel B) and decode (kernel C).
+
+The counterpart of the JAX package's ``codec/pallas_rans.py``
+(``encode_batch_compact`` with ``ctx=None`` -> ``_encode_compact_kernel``,
+``decode`` -> ``_decode_kernel``, ``split_init``).  On CUDA tensors the
+wrappers launch the hand-written kernels of ``csrc/rans_encode.cu`` and
+``csrc/rans_decode.cu``; on CPU tensors they run the plain versions built
+on ``codec/device_rans.py``.  Each wrapper counts its kernel launches
+(``.launches``) and its plain runs (``.plain_runs``).
+
+u16 stream words travel as int16 tensors holding the bit patterns; u32
+states as int32 tensors.  CDF precision is 16 (the codec's only setting).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from . import device_rans
+
+
+def _check_lane_cdf(lane_cdf: torch.Tensor, n_lanes: int, device) -> None:
+    if (lane_cdf.dim() != 2 or lane_cdf.shape[0] != n_lanes
+            or lane_cdf.dtype != torch.int32):
+        raise ValueError(f"lane_cdf must be ({n_lanes}, L+1) int32, got "
+                         f"{tuple(lane_cdf.shape)} {lane_cdf.dtype}")
+    if lane_cdf.device != device:
+        raise ValueError("lane_cdf must be on the symbols' device")
+
+
+def _cuda_ready(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the rANS kernels take contiguous tensors")
+
+
+def encode_batch_compact_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B (``device_rans.encode``)."""
+    words, counts = device_rans.encode(syms, lane_cdf)
+    return words.to(torch.int16), counts.to(torch.int32)
+
+
+def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode S streams, state loop and stream compaction on the card.
+
+    syms: (S, t, N) int8 symbols in [0, L) (the int8 latent reshaped);
+    lane_cdf: (N, L+1) int32 CDF row per lane.
+    Returns (words (S, 2N + t*N) int16, counts (S,) int32):
+    words[s, :counts[s]] is stream s past its header (flush words, then
+    payload), zeros after.  The buffer holds the 1-word-per-symbol worst
+    case, so no stream can overflow it."""
+    if syms.dim() != 3 or syms.dtype != torch.int8:
+        raise ValueError("syms must be (S, t, N) int8")
+    s, t_steps, n = syms.shape
+    _check_lane_cdf(lane_cdf, n, syms.device)
+    if syms.device.type == "cpu":
+        encode_batch_compact.plain_runs += 1
+        return encode_batch_compact_plain(syms, lane_cdf)
+    _cuda_ready(syms, lane_cdf)
+    width = 2 * n + t_steps * n
+    words = torch.zeros((s, width), dtype=torch.int16, device=syms.device)
+    counts = torch.empty((s,), dtype=torch.int32, device=syms.device)
+    scratch = torch.empty((s, t_steps, n), dtype=torch.int32,
+                          device=syms.device)
+    lib = _build.lib()
+    with torch.cuda.device(syms.device):
+        err = lib.sicn_rans_encode(
+            syms.data_ptr(), lane_cdf.data_ptr(), scratch.data_ptr(),
+            words.data_ptr(), counts.data_ptr(), s, t_steps, n,
+            lane_cdf.shape[1], width, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rans encode")
+    encode_batch_compact.launches += 1
+    return words, counts
+
+
+encode_batch_compact.launches = 0
+encode_batch_compact.plain_runs = 0
+
+
+def split_init(words: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """(S, cap) words -> (S, N) int32 initial states (u32 bits) from the
+    (hi, lo) flush prefix."""
+    init = words[:, : 2 * n_lanes].to(torch.int64) & 0xFFFF
+    return ((init[:, 0::2] << 16) | init[:, 1::2]).to(torch.int32)
+
+
+def decode_plain(words: torch.Tensor, x0: torch.Tensor,
+                 lane_cdf: torch.Tensor, t_steps: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel C (``device_rans.decode``)."""
+    syms, consumed, x_fin = device_rans.decode(words, x0, lane_cdf, t_steps)
+    return (syms.to(torch.int8), consumed.to(torch.int32),
+            x_fin.to(torch.int32))
+
+
+def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
+           t_steps: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode S streams.
+
+    words: (S, cap) int16 u16 stream words past the header (the 2N flush
+    words first; zero padding after the stream is ignored);
+    x0: (S, N) int32 initial states (``split_init``);
+    lane_cdf: (N, L+1) int32, rows increasing.
+    Returns (syms (S, t, N) int8, consumed (S,) int32, x_fin (S, N) int32).
+    The caller checks validity: consumed == word count, x_fin == 2^16."""
+    if words.dim() != 2 or words.dtype != torch.int16:
+        raise ValueError("words must be (S, cap) int16")
+    if x0.dim() != 2 or x0.dtype != torch.int32 or x0.shape[0] != \
+            words.shape[0]:
+        raise ValueError("x0 must be (S, N) int32")
+    s, cap = words.shape
+    n = x0.shape[1]
+    _check_lane_cdf(lane_cdf, n, words.device)
+    if x0.device != words.device:
+        raise ValueError("words and x0 must be on one device")
+    if words.device.type == "cpu":
+        decode.plain_runs += 1
+        return decode_plain(words, x0, lane_cdf, t_steps)
+    _cuda_ready(words, x0, lane_cdf)
+    syms = torch.empty((s, t_steps, n), dtype=torch.int8, device=words.device)
+    consumed = torch.empty((s,), dtype=torch.int32, device=words.device)
+    x_fin = torch.empty((s, n), dtype=torch.int32, device=words.device)
+    lib = _build.lib()
+    with torch.cuda.device(words.device):
+        err = lib.sicn_rans_decode(
+            words.data_ptr(), x0.data_ptr(), lane_cdf.data_ptr(),
+            syms.data_ptr(), consumed.data_ptr(), x_fin.data_ptr(),
+            s, cap, t_steps, n, lane_cdf.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rans decode")
+    decode.launches += 1
+    return syms, consumed, x_fin
+
+
+decode.launches = 0
+decode.plain_runs = 0

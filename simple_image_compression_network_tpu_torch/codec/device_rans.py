@@ -1,0 +1,153 @@
+"""Interleaved rANS as plain, lane-vectorized PyTorch, and the host helpers
+between stream bytes and word buffers.
+
+The counterpart of the JAX package's ``codec/device_rans.py``.  ``encode``
+and ``decode`` here are the plain versions of kernels B and C
+(``codec/cuda_rans.py``): every stream and every lane advances at once,
+one step of the serial loop per Python iteration.  They run on any device.
+
+torch has no ``>>``, ``//`` or ``+`` for ``uint32`` on the CPU, so 32-bit
+states are held in int64 and masked to 32 bits where a u32 would wrap.
+Word buffers hold u16 values; any integer dtype is accepted on input
+(int16 buffers carry the u16 bit patterns).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import ilrans
+
+_U16 = 0xFFFF
+_U32 = 0xFFFFFFFF
+
+
+def _lane_rows(lane_cdf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """lane_cdf[lane, idx[..., lane]] for idx (..., N)."""
+    n = lane_cdf.shape[0]
+    lanes = torch.arange(n, device=idx.device)
+    return lane_cdf[lanes.expand_as(idx), idx]
+
+
+def encode(syms: torch.Tensor, lane_cdf: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode S streams: syms (S, t, N) -> (words (S, 2N + t*N) int64
+    holding u16 values, counts (S,) int64).
+
+    lane_cdf: (N, L+1) CDF row of each lane (precision 16).  words[s, :
+    counts[s]] is stream s past its 8-byte header, bit-identical with the
+    JAX package's ``device_rans.encode`` and ``ilrans.encode``."""
+    s, t_steps, n = syms.shape
+    cdf = lane_cdf.to(torch.int64)
+    sy = syms.to(torch.int64)
+    starts = _lane_rows(cdf, sy)
+    freqs = _lane_rows(cdf, sy + 1) - starts
+    x = torch.full((s, n), ilrans.STATE_LB, dtype=torch.int64,
+                   device=syms.device)
+    emits = torch.empty((s, t_steps, n), dtype=torch.int64,
+                        device=syms.device)
+    needs = torch.empty((s, t_steps, n), dtype=torch.bool,
+                        device=syms.device)
+    for t in range(t_steps - 1, -1, -1):
+        freq = freqs[:, t]
+        need = (x >> 16) >= freq
+        emits[:, t] = x & _U16
+        needs[:, t] = need
+        x = torch.where(need, x >> 16, x)
+        x = ((x // freq) << ilrans.PREC) + x % freq + starts[:, t]
+    return assemble_stream(emits, needs, x)
+
+
+def assemble_stream(emits: torch.Tensor, needs: torch.Tensor,
+                    x_fin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S, t, N) emitted words + flags + (S, N) final states -> (words
+    (S, 2N + t*N), counts (S,)): the flush header (hi, lo per lane), then
+    the emitted words in (t asc, lane asc) order; zeros past the count."""
+    s, t_steps, n = emits.shape
+    flags = needs.reshape(s, t_steps * n)
+    fl = flags.to(torch.int64)
+    pos = 2 * n + torch.cumsum(fl, dim=1) - fl
+    buf = torch.zeros((s, 2 * n + t_steps * n), dtype=torch.int64,
+                      device=emits.device)
+    rows = torch.arange(s, device=emits.device)[:, None].expand_as(pos)
+    buf[rows[flags], pos[flags]] = emits.reshape(s, -1)[flags]
+    buf[:, 0:2 * n:2] = x_fin >> 16
+    buf[:, 1:2 * n:2] = x_fin & _U16
+    return buf, 2 * n + fl.sum(dim=1)
+
+
+def select_words(words: torch.Tensor, pos: torch.Tensor, rank: torch.Tensor
+                 ) -> torch.Tensor:
+    """Renorm word distribution: w[s, l] = words[s, pos[s] + rank[s, l]],
+    0 past the buffer's end (a corrupt stream then fails its final check
+    instead of reading out of bounds)."""
+    cap = words.shape[1]
+    idx = pos[:, None] + rank
+    got = torch.gather(words, 1, idx.clamp(max=cap - 1))
+    return torch.where(idx < cap, got, torch.zeros_like(got))
+
+
+def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
+           t_steps: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode S streams: words (S, cap) u16 values (the 2N flush words
+    first), x0 (S, N) initial states -> (syms (S, t, N) int64, consumed
+    (S,) int64, x_fin (S, N) int64).  A stream is valid iff consumed equals
+    its word count and every final state equals 2^16."""
+    s, cap = words.shape
+    n = x0.shape[1]
+    w = words.to(torch.int64) & _U16
+    x = x0.to(torch.int64) & _U32
+    cdf = lane_cdf.to(torch.int64)
+    inner = cdf[:, 1:-1]                               # (N, L-1)
+    pos = torch.full((s,), 2 * n, dtype=torch.int64, device=words.device)
+    syms = torch.empty((s, t_steps, n), dtype=torch.int64,
+                       device=words.device)
+    for t in range(t_steps):
+        slot = x & _U16
+        sym = (inner[None] <= slot[..., None]).sum(dim=-1)
+        start = _lane_rows(cdf, sym)
+        freq = _lane_rows(cdf, sym + 1) - start
+        x = (freq * (x >> ilrans.PREC) + slot - start) & _U32
+        need = x < ilrans.STATE_LB
+        ni = need.to(torch.int64)
+        rank = torch.cumsum(ni, dim=1) - ni
+        x = torch.where(need, (x << 16) | select_words(w, pos, rank), x)
+        pos = pos + ni.sum(dim=1)
+        syms[:, t] = sym
+    return syms, pos, x
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers bridging bytes <-> word buffers
+# ---------------------------------------------------------------------------
+
+WORD_BUCKET = 4096  # words; buffer lengths round up to this
+
+
+def bucket_words(n: int) -> int:
+    return -(-n // WORD_BUCKET) * WORD_BUCKET
+
+
+def words_from_bytes(data: bytes, cap: int) -> np.ndarray:
+    """Stream bytes (past the ilrans header) -> u16 words, zero-padded to
+    ``cap`` (which must cover the stream's word count)."""
+    w = np.frombuffer(data, "<u2")
+    out = np.zeros(cap, np.uint16)
+    out[: w.size] = w
+    return out
+
+
+def streams_from_words(words: np.ndarray, counts: np.ndarray, n_syms: int,
+                       n_lanes: int, prec: int = ilrans.PREC) -> list:
+    """(S, cap) u16 words + (S,) counts -> S ilrans streams (header +
+    words[:count])."""
+    hdr = ilrans.pack_header(n_syms, n_lanes, prec)
+    w2 = np.ascontiguousarray(words).astype("<u2", copy=False)
+    mv = memoryview(w2).cast("B")
+    row = w2.shape[1] * 2
+    return [hdr + bytes(mv[i * row: i * row + 2 * int(counts[i])])
+            for i in range(w2.shape[0])]

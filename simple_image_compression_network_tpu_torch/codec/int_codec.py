@@ -1,0 +1,194 @@
+"""End-to-end bitstream codec for the bit-exact integer model, on the card.
+
+The counterpart of the JAX package's ``codec/int_codec.py`` with the device
+coder and static CDFs:
+
+encode: images -> integer analysis transform (kernel A) -> int8 latent
+        (values 0..127) -> N-lane interleaved rANS on the card (kernel B)
+        -> container bytes, one per image, byte-identical with the JAX
+        package's ``compress_batch(coder="device", static_cdfs=...)``.
+decode: container bytes -> rANS decode on the card (kernel C, exact latent)
+        -> integer synthesis transform (kernel A) -> reconstruction,
+        bit-exact with running the autoencoder directly.
+
+Latent layout: (zx*zy, C) channel-fastest, split into S contiguous spatial
+streams of t steps x N = lane_mult*C lanes; lane k codes channel k % C.
+At 768x512 that is S = 8 streams, t = 96 steps, N = 384 lanes per image.
+
+Not ported yet (``NotImplementedError``): per-image histogram tables
+(``static_cdfs=None``) and the host coders (``coder`` other than "device").
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.codec_int import IntCodecNet
+from . import container, cuda_rans, device_rans, ilrans
+
+DEFAULT_LANE_MULT = 2   # lanes = mult * channels
+DEFAULT_STREAMS = 8     # independent spatial streams per image
+
+
+def plan_streams(n_pix: int, lane_mult: int = DEFAULT_LANE_MULT,
+                 n_streams: int = DEFAULT_STREAMS) -> Tuple[int, int]:
+    """Pick (S, lane_mult) dividing the zx*zy latent pixels evenly, with
+    >= 32 steps per stream (same rule as the JAX package; the choice is
+    recorded in the bitstream)."""
+    while n_pix % lane_mult:
+        lane_mult -= 1
+    t_total = n_pix // lane_mult
+    s = max(1, min(n_streams, t_total // 32))
+    while t_total % s:
+        s -= 1
+    return s, lane_mult
+
+
+def _lane_cdf(cdfs: np.ndarray, n_lanes: int) -> np.ndarray:
+    """(C, L+1) context CDFs -> per-lane rows (lane k <-> channel k % C)."""
+    c = cdfs.shape[0]
+    return cdfs[np.arange(n_lanes) % c]
+
+
+def _lane_cdf_tensor(cdfs: np.ndarray, n_lanes: int, device) -> torch.Tensor:
+    rows = np.ascontiguousarray(_lane_cdf(cdfs, n_lanes), np.int32)
+    return torch.from_numpy(rows).to(device)
+
+
+def _require_device_coder(coder: str, static_cdfs) -> None:
+    if coder != "device":
+        raise NotImplementedError(
+            f"coder={coder!r}: only the device coder is ported")
+    if static_cdfs is None:
+        raise NotImplementedError(
+            "per-image histogram tables are not ported: pass static_cdfs")
+
+
+def _pack_streams(streams: Sequence[bytes]) -> bytes:
+    """S per-chunk ilrans streams -> one payload section."""
+    return struct.pack("<H", len(streams)) + b"".join(
+        struct.pack("<I", len(s)) + s for s in streams)
+
+
+def _unpack_streams(payload: bytes) -> List[bytes]:
+    (s,) = struct.unpack_from("<H", payload)
+    out, off = [], 2
+    for _ in range(s):
+        (ln,) = struct.unpack_from("<I", payload, off)
+        out.append(payload[off + 4: off + 4 + ln])
+        off += 4 + ln
+    return out
+
+
+def compress_batch(net: IntCodecNet, x: torch.Tensor,
+                   static_cdfs: np.ndarray | None = None,
+                   coder: str = "device",
+                   lane_mult: int = DEFAULT_LANE_MULT,
+                   n_streams: int = DEFAULT_STREAMS) -> List[bytes]:
+    """x: (B, X, Y, 3) uint8/int8 wire images -> B container bytestrings.
+
+    Runs on ``net.device``: one batched transform and one batched entropy
+    encode over all B*S streams, then one fetch of the counts and one of
+    the words (bucketed to the longest stream)."""
+    _require_device_coder(coder, static_cdfs)
+    z = net.analysis(x)
+    b, zx, zy, c = z.shape
+    s, lane_mult = plan_streams(zx * zy, lane_mult, n_streams)
+    n_lanes = lane_mult * c
+    t_steps = (zx * zy) // lane_mult // s
+    n_syms = t_steps * n_lanes  # per stream
+    header = struct.pack("<HHHHH", x.shape[1], x.shape[2], zx, zy, c)
+
+    lane_cdf = _lane_cdf_tensor(static_cdfs, n_lanes, z.device)
+    words, counts = cuda_rans.encode_batch_compact(
+        z.reshape(b * s, t_steps, n_lanes), lane_cdf)
+    counts_np = counts.cpu().numpy()
+    need = min(device_rans.bucket_words(int(counts_np.max())),
+               words.shape[1])
+    flat_w = words[:, :need].cpu().numpy().view(np.uint16)
+    chunks = device_rans.streams_from_words(flat_w, counts_np, n_syms,
+                                            n_lanes)
+    return [container.pack(container.CODEC_INT8,
+                           [header, b"", _pack_streams(chunks[i * s:
+                                                              (i + 1) * s])])
+            for i in range(b)]
+
+
+def decompress_batch(net: IntCodecNet, streams: Sequence[bytes],
+                     static_cdfs: np.ndarray | None = None,
+                     coder: str = "device"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B containers -> (reconstructions (B, X, Y, 3) int8, latents int8),
+    both on ``net.device``.  All containers must share one geometry.
+    Raises ValueError for a corrupt stream (words consumed != stream
+    length, or a final coder state != 2^16)."""
+    _require_device_coder(coder, static_cdfs)
+    metas = []
+    for data in streams:
+        codec_id, sections = container.unpack(data)
+        if codec_id != container.CODEC_INT8 or len(sections) != 3:
+            raise ValueError("not an int8 codec container")
+        header, cdf_bytes, payload = sections
+        if cdf_bytes:
+            raise NotImplementedError(
+                "container embeds per-image tables: not ported")
+        metas.append((struct.unpack("<HHHHH", header),
+                      _unpack_streams(payload)))
+    (_, _, zx, zy, c) = metas[0][0]
+    if any(m[0] != metas[0][0] for m in metas):
+        raise ValueError("mixed geometries in one batch")
+    s = len(metas[0][1])
+    n_syms, n_lanes, _, off = ilrans.unpack_header(metas[0][1][0])
+    if n_syms * s != zx * zy * c:
+        raise ValueError("stream plan does not cover the latent")
+    t_steps = n_syms // n_lanes
+
+    chunks = [chunk for m in metas for chunk in m[1]]
+    true_counts = np.asarray([(len(ch) - off) // 2 for ch in chunks],
+                             np.int32)
+    cap = device_rans.bucket_words(int(true_counts.max()))
+    words = np.stack([device_rans.words_from_bytes(ch[off:], cap)
+                      for ch in chunks])
+    dev = net.device
+    wdev = torch.from_numpy(words.view(np.int16)).to(dev)
+    lane_cdf = _lane_cdf_tensor(static_cdfs, n_lanes, dev)
+    syms, consumed, x_fin = cuda_rans.decode(
+        wdev, cuda_rans.split_init(wdev, n_lanes), lane_cdf, t_steps)
+    z = syms.reshape(len(streams), zx, zy, c)
+    x_hat = net.synthesis(z)
+    ok = ((consumed.cpu().numpy() == true_counts)
+          & (x_fin.cpu().numpy() == ilrans.STATE_LB).all(axis=1))
+    if not ok.all():
+        bad = int(np.flatnonzero(~ok)[0])
+        raise ValueError(f"corrupt stream (image {bad // s}, chunk {bad % s})")
+    return x_hat, z
+
+
+def compress(net: IntCodecNet, x: torch.Tensor,
+             static_cdfs: np.ndarray | None = None,
+             coder: str = "device") -> bytes:
+    """Single-image wrapper around ``compress_batch``."""
+    if x.shape[0] != 1:
+        raise ValueError("use compress_batch for B > 1")
+    return compress_batch(net, x, static_cdfs, coder)[0]
+
+
+def decompress(net: IntCodecNet, data: bytes,
+               static_cdfs: np.ndarray | None = None,
+               coder: str = "device") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-image wrapper around ``decompress_batch``."""
+    return decompress_batch(net, [data], static_cdfs, coder)
+
+
+def compression_stats(x_shape, data: bytes) -> Dict[str, float]:
+    n_pixels = x_shape[1] * x_shape[2]
+    raw_bytes = n_pixels * x_shape[3]
+    return {
+        "bytes": len(data),
+        "bpp": 8.0 * len(data) / n_pixels,
+        "ratio": raw_bytes / len(data),
+    }

@@ -1,0 +1,94 @@
+// Kernel B: interleaved-rANS encode with in-kernel stream compaction.
+//
+// Replaces the TPU kernel codec/pallas_rans.py:_encode_compact_kernel
+// (-> _compact_encode_body, via encode_batch_compact with ctx=None) of the
+// JAX package.  Format: codec/ilrans.py (32-bit state in [2^16, 2^32),
+// 16-bit renormalisation words, 16-bit CDF precision, <= 1 word per symbol).
+//
+// One block per stream, one thread per lane.
+//   Pass 1, t descending: the reverse state recurrence
+//       need = (x >> 16) >= freq;  emit x & 0xFFFF;  if need: x >>= 16
+//       x = ((x / freq) << 16) + x % freq + start
+//     with start/freq from the lane's CDF row (global memory; ~100 KB of
+//     distinct rows stays in L2).  Each step's word, or -1 for none, goes
+//     to a scratch buffer the wrapper allocates.
+//   Pass 2, t ascending: a block exclusive scan of the emit flags places
+//     each word at 2N + base + rank; base advances by the step's total.
+//   Header: (hi, lo) of the final state per lane, then counts = 2N + total.
+// The TPU kernel's carry ring and butterfly network worked around VMEM
+// store costs; here compaction is one scan and direct global stores.
+//
+// Bound on an H100 SXM: the serial chain of t state updates per lane (96 at
+// the flagship geometry), with a 32-bit division each, not bytes: per
+// 768x512 image the kernel reads 294,912 int8 symbols and writes at most
+// 2N + t*N u16 words (~0.6 MB together, ~0.2 us at 3.35 TB/s).  The grid
+// has only B*8 blocks of 384 threads, so most SMs idle at small batch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "block_scan.cuh"
+
+namespace {
+
+__global__ void rans_encode_kernel(const int8_t* __restrict__ syms,
+                                   const int* __restrict__ lane_cdf,
+                                   int* __restrict__ scratch,
+                                   int16_t* __restrict__ words,
+                                   int* __restrict__ counts, int T, int N,
+                                   int L1, int W) {
+  __shared__ int sh[32];
+  const int s = blockIdx.x;
+  const int k = threadIdx.x;
+  const bool active = k < N;
+  const size_t off = (size_t)s * T * N;
+  uint32_t x = 1u << 16;
+
+  if (active) {
+    const int* row = lane_cdf + (size_t)k * L1;
+    for (int t = T - 1; t >= 0; --t) {
+      int sym = syms[off + (size_t)t * N + k];
+      // out-of-alphabet input is the caller's error; clamp only so that
+      // the row read stays inside the table
+      sym = sym < 0 ? 0 : (sym > L1 - 2 ? L1 - 2 : sym);
+      const uint32_t start = (uint32_t)row[sym];
+      const uint32_t freq = (uint32_t)row[sym + 1] - start;
+      const bool need = (x >> 16) >= freq;
+      scratch[off + (size_t)t * N + k] = need ? (int)(x & 0xFFFFu) : -1;
+      if (need) x >>= 16;
+      x = ((x / freq) << 16) + x % freq + start;
+    }
+  }
+
+  int16_t* wo = words + (size_t)s * W;
+  if (active) {
+    wo[2 * k] = (int16_t)(x >> 16);
+    wo[2 * k + 1] = (int16_t)(x & 0xFFFFu);
+  }
+  int base = 2 * N;
+  for (int t = 0; t < T; ++t) {
+    const int e = active ? scratch[off + (size_t)t * N + k] : -1;
+    const int f = e >= 0;
+    int total;
+    const int r = block_exclusive_scan(f, &total, sh);
+    if (f) wo[base + r] = (int16_t)e;
+    base += total;
+  }
+  if (k == 0) counts[s] = base;
+}
+
+}  // namespace
+
+extern "C" int sicn_rans_encode(const void* syms, const void* lane_cdf,
+                                void* scratch, void* words, void* counts,
+                                int S, int T, int N, int L1, int W,
+                                void* stream) {
+  const int threads = ((N + 31) / 32) * 32;
+  if (S <= 0 || T <= 0 || N <= 0 || threads > 1024 || L1 < 2 ||
+      W < 2 * N + T * N)
+    return (int)cudaErrorInvalidValue;
+  rans_encode_kernel<<<S, threads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)syms, (const int*)lane_cdf, (int*)scratch,
+      (int16_t*)words, (int*)counts, T, N, L1, W);
+  return (int)cudaGetLastError();
+}

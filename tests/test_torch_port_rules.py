@@ -1,0 +1,104 @@
+"""Rules of the PyTorch/CUDA port: it imports no JAX and nothing of the JAX
+package, its entry points never drop quietly to the CPU, and its kernels
+build without PyTorch's headers or PyTorch's extension builder."""
+
+import glob
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from simple_image_compression_network_tpu_torch import _build
+from simple_image_compression_network_tpu_torch.models import codec_int
+from simple_image_compression_network_tpu_torch.utils import device
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(ROOT, "simple_image_compression_network_tpu_torch")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import simple_image_compression_network_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke  # noqa: F401
+ref = "simple_image_compression_network_tpu"
+bad = [m for m in sys.modules
+       if m in ("jax", "flax", "msgpack", ref)
+       or m.startswith(("jax.", "flax.", "msgpack.", ref + "."))]
+print(" ".join(sorted(bad)))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port, and chip_smoke, in a fresh interpreter.
+    The JAX package's name is a prefix of the port's: match it exactly or
+    with its dot, never by a bare prefix."""
+    res = subprocess.run([sys.executable, "-c", _PROBE, ROOT],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert res.returncode == 0, (res.stdout, res.stderr[-2000:])
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        device.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        device.resolve_device("cuda")
+    params = {f"w{i}": torch.zeros((1, 5, 5, 1), dtype=torch.int8)
+              for i in range(8)}
+    params.update({f"b{i}": torch.zeros((1,), dtype=torch.int8)
+                   for i in range(8)})
+    with pytest.raises(RuntimeError):
+        codec_int.IntCodecNet(params)
+    assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_sources_use_no_pytorch_headers():
+    sources = glob.glob(os.path.join(PKG, "csrc", "*.cu*"))
+    assert len(sources) >= 3
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert "#include <torch" not in text and "ATen" not in text, path
+    uses_builder = re.compile(r"import\s+cpp_extension|cpp_extension\s+import"
+                              r"|cpp_extension\.load|import\s+torch\.utils"
+                              r"\.cpp_extension")
+    for path in glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True):
+        with open(path) as f:
+            assert not uses_builder.search(f.read()), path
+
+
+def _fake_nvcc(directory):
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "nvcc")
+    with open(path, "w") as f:
+        f.write("#!/bin/sh\nexit 1\n")
+    os.chmod(path, 0o755)
+    return path
+
+
+def test_find_nvcc_order(tmp_path, monkeypatch):
+    on_path = _fake_nvcc(str(tmp_path / "path"))
+    in_home = _fake_nvcc(str(tmp_path / "cuda" / "bin"))
+    monkeypatch.setenv("PATH", str(tmp_path / "path"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    assert _build.find_nvcc() == on_path
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    assert _build.find_nvcc() == in_home
+
+
+def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
+    """A compiler that fails: the build raises with its output and leaves
+    no library (nor temporary file) that a later build would trust."""
+    _fake_nvcc(str(tmp_path / "bin"))
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+    monkeypatch.setattr(_build, "_BUILD_ROOT", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    assert glob.glob(str(tmp_path / "build" / "*" / "*")) == []
