@@ -5,13 +5,21 @@
 
 Builds the port's CUDA kernels from ``simple_image_compression_network_tpu_torch/
 csrc`` (one nvcc call), holds each kernel bit-exactly against its plain
-PyTorch version, then drives the port's main path at full width: the int8
-codec's ``compress_batch`` then ``decompress_batch`` on B random-seeded
-768x512 images with the reference weights and the static latent CDFs.  The
-round trip is checked against the direct golden transform (plain float64
-convolutions, independent of kernel A), the launch counts show that the
-main path ran on the kernels, and each kernel is timed at the main path's
-shapes beside its plain version and its bound.
+PyTorch version, then drives the port's two paths at full width on B
+random-seeded 768x512 images:
+
+* the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
+  reference weights and the static latent CDFs, checked against the direct
+  golden transform (plain float64 convolutions, independent of kernel A);
+* the scale-hyperprior codec's ``compress_batch`` then ``decompress_batch``
+  with the trained ``checkpoints/hp_scale_l0.01.params.msgpack`` (N = 128,
+  M = 192), checked for y_hat and z_hat equal to the encoder's integers.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, which shows it ran on its kernels; then each kernel is timed at its
+paths' shapes beside its plain version and its bound, and the hyper path's
+time is broken down by stage (host clock) and by device kernel
+(torch.profiler).
 
 Output: one line per phase with its seconds; then the card's name and
 power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line, and as the
@@ -39,6 +47,8 @@ WATCHDOG_S = 600          # a hang ends as a traceback and a non-zero exit
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (data sheet)
 H, W = 768, 512           # the reference geometry
+HYPER_CKPT = os.path.join(ROOT, "checkpoints",
+                          "hp_scale_l0.01.params.msgpack")
 # (C, N) of kernel A's eight layer forms: s2d L0-L3, d2s L4-L6, s2dtail L7
 LAYER_FORMS = [("L0 s2d", 12, 128), ("L1 s2d", 512, 128),
                ("L2 s2d", 512, 128), ("L3 s2d", 512, 192),
@@ -135,6 +145,57 @@ def conv_inputs(rng, b: int, x: int, y: int, c: int, n: int, dev):
     return xs, w3, bias
 
 
+def ctx_symbols(rng, table: np.ndarray, s: int, t: int, n: int,
+                n_escapes: int = 0):
+    """(S, t, N) int32 contexts (uniform over the table's rows) and int32
+    symbols drawn from each context's row; then ``n_escapes`` positions
+    forced to the escape symbol (the table's last)."""
+    ctx = rng.integers(0, table.shape[0], size=(s, t, n)).astype(np.int32)
+    u = rng.integers(0, table[0, -1], size=(s, t, n))
+    syms = np.empty((s, t, n), np.int32)
+    for r in range(table.shape[0]):
+        m = ctx == r
+        syms[m] = np.searchsorted(table[r, 1:], u[m], side="right")
+    flat = syms.reshape(-1)
+    flat[rng.choice(flat.size, n_escapes, replace=False)] = table.shape[1] - 2
+    return syms, ctx
+
+
+def check_rans(tag: str, enc, dec, enc_plain, dec_plain, syms, tables,
+               t: int, n: int, errs: dict, keys) -> torch.Tensor:
+    """Encode with a kernel and its plain version, decode the kernel's words
+    with the other kernel and its plain version (whole and truncated), all
+    bit-exact; the round trip must give back the symbols.  ``tables`` are
+    the table arguments after syms (encode) or x0 (decode).  Returns the
+    word counts."""
+    k_enc, k_dec = keys
+    words, counts = enc(syms, *tables)
+    ref_w, ref_c = enc_plain(syms.cpu(), *[a.cpu() for a in tables])
+    errs[k_enc] = max(
+        errs[k_enc],
+        require_equal(f"{tag} encode counts", counts, ref_c),
+        require_equal(f"{tag} encode words", words.to(torch.int32) & 0xFFFF,
+                      ref_w.to(torch.int32) & 0xFFFF))
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    x0 = cuda_rans.split_init(words, n)
+    for cut in (None, 2 * n + 5):
+        w = words if cut is None else words[:, :cut].contiguous()
+        got = dec(w, x0, *tables, t)
+        ref = dec_plain(w.cpu(), x0.cpu(), *[a.cpu() for a in tables], t)
+        for what, g, r in zip(("syms", "consumed", "x_fin"), got, ref):
+            errs[k_dec] = max(errs[k_dec], require_equal(
+                f"{tag} decode {what}{'' if cut is None else ' truncated'}",
+                g, r))
+        if cut is None:
+            out, cons, xfin = got
+            require_equal(f"{tag} round trip", out.to(torch.int32),
+                          syms.to(torch.int32))
+            require_equal(f"{tag} consumed == count", cons, counts)
+            if not bool((xfin == 1 << 16).all()):
+                raise AssertionError(f"{tag}: final decoder states != 2^16")
+    return counts
+
+
 def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
     """Each kernel against its plain version on CPU copies, bit-exact.
     Returns the max |diff| per kernel (0 when it passes)."""
@@ -143,7 +204,8 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
         _lane_cdf)
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
 
-    errs = {"conv3x3_s1_int8": 0, "rans_encode": 0, "rans_decode": 0}
+    errs = {"conv3x3_s1_int8": 0, "rans_encode": 0, "rans_decode": 0,
+            "rans_encode_ctx": 0, "rans_decode_ctx": 0}
     for name, c, n in LAYER_FORMS:  # ragged 20x28: partial tiles both ways
         xs, w3, bias = conv_inputs(rng, 2, 20, 28, c, n, dev)
         got = cuda_conv.conv3x3_s1_int8(xs, w3, bias)
@@ -163,48 +225,91 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
         lane_cdf = np.ascontiguousarray(_lane_cdf(cdfs, n), np.int32)
         syms = torch.from_numpy(lane_symbols(rng, lane_cdf, s, t)).to(dev)
         lc = torch.from_numpy(lane_cdf).to(dev)
-        words, counts = cuda_rans.encode_batch_compact(syms, lc)
-        ref_w, ref_c = cuda_rans.encode_batch_compact_plain(syms.cpu(),
-                                                            lc.cpu())
-        errs["rans_encode"] = max(
-            errs["rans_encode"],
-            require_equal(f"kernel B counts S={s} t={t} N={n}", counts,
-                          ref_c),
-            require_equal(f"kernel B words S={s} t={t} N={n}",
-                          words.to(torch.int32) & 0xFFFF,
-                          ref_w.to(torch.int32) & 0xFFFF))
-        x0 = cuda_rans.split_init(words, n)
-        out, cons, xfin = cuda_rans.decode(words, x0, lc, t)
-        r_out, r_cons, r_xfin = cuda_rans.decode_plain(
-            words.cpu(), x0.cpu(), lc.cpu(), t)
-        errs["rans_decode"] = max(
-            errs["rans_decode"],
-            require_equal(f"kernel C syms S={s}", out, r_out),
-            require_equal(f"kernel C consumed S={s}", cons, r_cons),
-            require_equal(f"kernel C x_fin S={s}", xfin, r_xfin))
-        require_equal(f"round trip S={s}", out, syms)
-        require_equal(f"consumed == count S={s}", cons, counts)
-        if not bool((xfin == 1 << 16).all()):
-            raise AssertionError("final decoder states != 2^16")
-        # a truncated buffer: reads past it give 0 in both versions
-        cut = words[:, : 2 * n + 5].contiguous()
-        got = cuda_rans.decode(cut, x0, lc, t)
-        ref = cuda_rans.decode_plain(cut.cpu(), x0.cpu(), lc.cpu(), t)
-        for what, g, r in zip(("syms", "consumed", "x_fin"), got, ref):
-            errs["rans_decode"] = max(errs["rans_decode"], require_equal(
-                f"kernel C truncated {what} S={s}", g, r))
+        counts = check_rans(
+            f"kernels B, C S={s} t={t} N={n}",
+            cuda_rans.encode_batch_compact, cuda_rans.decode,
+            cuda_rans.encode_batch_compact_plain, cuda_rans.decode_plain,
+            syms, (lc,), t, n, errs, ("rans_encode", "rans_decode"))
         log(f"kernels B, C: S={s} t={t} N={n} bit-exact, "
             f"{int(counts.sum())} words")
     return errs
 
 
-def time_kernels(rng, cdfs, batch: int, dev, errs: dict,
-                 launches: dict) -> list:
-    """Each kernel at the main path's shapes: kernel, plain version (on
-    the card) and bound.  The plain versions repeat the kernel's function,
-    so their outputs are compared too.  ``launches`` are the main path's
-    counts."""
+def check_hyper_kernels(rng, codec, batch: int, dev, errs: dict) -> None:
+    """Kernels D and E at the hyper y shapes (S = 8B, t = 96, N = 384,
+    table 64 x 257, with forced escapes), then a ragged shape; kernels B
+    and C at the hyper z shapes (S = B, t = 48, N = 256, rows of 129):
+    each against its plain version, bit-exact."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        cuda_rans, hyper_codec)
+    y_table = np.ascontiguousarray(codec.y_cdfs_dev, np.int32)
+    yt = torch.from_numpy(y_table).to(dev)
+    s_img, n, t = hyper_codec._plan_lanes((H // 16) * (W // 16), 192)
+    for s, t, n, n_esc in ((batch * s_img, t, n, 1000), (3, 40, 200, 7)):
+        syms, ctx = ctx_symbols(rng, y_table, s, t, n, n_esc)
+        ctx_d = torch.from_numpy(ctx).to(dev)
+        # ctx rides after the table: encode(syms, table, ctx) and
+        # decode(words, x0, table, ctx, t)
+        counts = check_rans(
+            f"kernels D, E S={s} t={t} N={n}",
+            cuda_rans.encode_batch_compact_ctx, cuda_rans.decode_ctx,
+            cuda_rans.encode_batch_compact_ctx_plain,
+            cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
+            (yt, ctx_d), t, n, errs, ("rans_encode_ctx", "rans_decode_ctx"))
+        log(f"kernels D, E: S={s} t={t} N={n} R=64 L+1=257 bit-exact, "
+            f"{n_esc} forced escapes, {int(counts.sum())} words")
+    s_img, n, t = hyper_codec._plan_lanes((H // 64) * (W // 64), 128)
+    s = batch * s_img
+    lane_cdf = np.ascontiguousarray(codec.z_cdfs[np.arange(n) % 128],
+                                    np.int32)
+    syms = torch.from_numpy(lane_symbols(rng, lane_cdf, s, t)).to(dev)
+    counts = check_rans(
+        f"kernels B, C z shapes S={s} t={t} N={n}",
+        cuda_rans.encode_batch_compact, cuda_rans.decode,
+        cuda_rans.encode_batch_compact_plain, cuda_rans.decode_plain,
+        syms, (torch.from_numpy(lane_cdf).to(dev),), t, n, errs,
+        ("rans_encode", "rans_decode"))
+    log(f"kernels B, C: z shapes S={s} t={t} N={n} L+1={lane_cdf.shape[1]} "
+        f"bit-exact, {int(counts.sum())} words")
+
+
+def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
+              n: int, sym_bytes: int, ctx_bytes: int) -> dict:
+    """Time one encode kernel and one decode kernel at one shape beside
+    their plain versions (on the card), and their byte bounds: each input
+    read once, each output written once (the words as written)."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    s = syms.shape[0]
+    words, counts = enc(syms, *tables)
+    x0 = cuda_rans.split_init(words, n)
+    n_words = int(counts.sum())
+    out = {
+        "enc_ms": cuda_ms(lambda: enc(syms, *tables), 20),
+        "enc_plain": cuda_ms(lambda: enc_plain(syms, *tables), 3),
+        "dec_ms": cuda_ms(lambda: dec(words, x0, *tables, t), 20),
+        "dec_plain": cuda_ms(lambda: dec_plain(words, x0, *tables, t), 3),
+    }
+    table = tables[0].numel() * 4
+    states = 4 * x0.numel()
+    n_sym = syms.numel()
+    enc_bytes = (n_sym * (sym_bytes + ctx_bytes) + table   # syms, ctx, table
+                 + 2 * n_words + 4 * s)                    # words, counts
+    dec_bytes = (2 * n_words + states + table + n_sym * ctx_bytes
+                 + n_sym * sym_bytes + 4 * s + states)  # syms, consumed, x_fin
+    out["enc_bound"] = enc_bytes / PEAK_BYTES * 1e3
+    out["dec_bound"] = dec_bytes / PEAK_BYTES * 1e3
+    out["shape"] = f"S={s} t={t} N={n} L+1={tables[0].shape[1]}"
+    out["n_words"] = n_words
+    return out
+
+
+def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
+                 launches: dict) -> list:
+    """Each kernel at its paths' shapes: kernel, plain version (on the
+    card) and bound.  Kernel A's plain version repeats its function, so its
+    outputs are compared too.  ``launches`` are the paths' counts."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        cuda_rans, hyper_codec)
     from simple_image_compression_network_tpu_torch.codec.int_codec import (
         _lane_cdf, plan_streams)
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
@@ -226,75 +331,116 @@ def time_kernels(rng, cdfs, batch: int, dev, errs: dict,
             f"({ops / k / 1e9:.1f} Gop/s)")
         ms, plain_ms, bound_ms = ms + k, plain_ms + p, bound_ms + bnd
 
+    # B, C at the int8 latent's shapes (S = 8B, t = 96, N = 384)
     zx, zy = H // 16, W // 16
     s_img, lm = plan_streams(zx * zy)
     s, n = batch * s_img, lm * 192
     t = zx * zy // lm // s_img
     lane_cdf = np.ascontiguousarray(_lane_cdf(cdfs, n), np.int32)
     syms = torch.from_numpy(lane_symbols(rng, lane_cdf, s, t)).to(dev)
-    lc = torch.from_numpy(lane_cdf).to(dev)
-    words, counts = cuda_rans.encode_batch_compact(syms, lc)
-    x0 = cuda_rans.split_init(words, n)
-    n_words = int(counts.sum())
-    enc_ms = cuda_ms(lambda: cuda_rans.encode_batch_compact(syms, lc), 20)
-    enc_plain = cuda_ms(
-        lambda: cuda_rans.encode_batch_compact_plain(syms, lc), 3)
-    dec_ms = cuda_ms(lambda: cuda_rans.decode(words, x0, lc, t), 20)
-    dec_plain = cuda_ms(lambda: cuda_rans.decode_plain(words, x0, lc, t), 3)
-    # each input read once, each output written once (words as written)
-    table = lane_cdf.size * 4
-    states = 4 * x0.numel()
-    enc_bytes = syms.numel() + table + 2 * n_words + 4 * s
-    dec_bytes = (2 * n_words + states + table         # words, x0, table in
-                 + syms.numel() + 4 * s + states)    # syms, consumed, x_fin
-    log(f"kernel B S={s} t={t} N={n}: {enc_ms:.4f} ms, plain "
-        f"{enc_plain:.3f} ms; kernel C: {dec_ms:.4f} ms, plain "
-        f"{dec_plain:.3f} ms; {n_words} words")
+    bc = time_rans(cuda_rans.encode_batch_compact, cuda_rans.decode,
+                   cuda_rans.encode_batch_compact_plain,
+                   cuda_rans.decode_plain, syms,
+                   (torch.from_numpy(lane_cdf).to(dev),), t, n, 1, 0)
+    # B, C at the hyper-latent's shapes (S = B, t = 48, N = 256)
+    s_img, n, t = hyper_codec._plan_lanes((H // 64) * (W // 64), 128)
+    lane_cdf = np.ascontiguousarray(codec.z_cdfs[np.arange(n) % 128],
+                                    np.int32)
+    syms = torch.from_numpy(
+        lane_symbols(rng, lane_cdf, batch * s_img, t)).to(dev)
+    bc_z = time_rans(cuda_rans.encode_batch_compact, cuda_rans.decode,
+                     cuda_rans.encode_batch_compact_plain,
+                     cuda_rans.decode_plain, syms,
+                     (torch.from_numpy(lane_cdf).to(dev),), t, n, 1, 0)
+    # D, E at the hyper y shapes (S = 8B, t = 96, N = 384, table 64 x 257)
+    s_img, n, t = hyper_codec._plan_lanes((H // 16) * (W // 16), 192)
+    y_table = np.ascontiguousarray(codec.y_cdfs_dev, np.int32)
+    syms, ctx = ctx_symbols(rng, y_table, batch * s_img, t, n, 100)
+    de = time_rans(cuda_rans.encode_batch_compact_ctx, cuda_rans.decode_ctx,
+                   cuda_rans.encode_batch_compact_ctx_plain,
+                   cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
+                   (torch.from_numpy(y_table).to(dev),
+                    torch.from_numpy(ctx).to(dev)), t, n, 4, 4)
+    for tag, r in (("B, C int8", bc), ("B, C z", bc_z), ("D, E y", de)):
+        log(f"kernels {tag} {r['shape']}: encode {r['enc_ms']:.4f} ms "
+            f"(plain {r['enc_plain']:.3f}, bound {r['enc_bound']:.5f}), "
+            f"decode {r['dec_ms']:.4f} ms (plain {r['dec_plain']:.3f}, "
+            f"bound {r['dec_bound']:.5f}); {r['n_words']} words")
 
-    def entry(name, source, replaces, launches, err, k, p, bnd, unit):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": k, "plain_ms": p,
-                "bound_ms": bnd, "bound_by": "operations" if name ==
-                "conv3x3_s1_int8" else "bytes",
-                "library_ms": None, "unit": unit}
     pkg = "simple_image_compression_network_tpu_torch/csrc/"
+    ref = "simple_image_compression_network_tpu/"
+
+    def entry(name, source, replaces, err, k, p, bnd, unit, by="bytes",
+              **extra):
+        return {"name": name, "route": "cuda", "source": pkg + source,
+                "replaces": ref + replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name], "max_abs_err": err,
+                "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": by,
+                "library_ms": None, "unit": unit, **extra}
+
+    def z_shapes(r, kind):
+        return {"shape": r["shape"], "ms": r[f"{kind}_ms"],
+                "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"]}
     return [
-        entry("conv3x3_s1_int8", pkg + "conv3x3_int8.cu",
-              "simple_image_compression_network_tpu/ops/pallas_conv.py:177",
-              launches["conv3x3_s1_int8"], errs["conv3x3_s1_int8"],
+        entry("conv3x3_s1_int8", "conv3x3_int8.cu",
+              "ops/pallas_conv.py:177", errs["conv3x3_s1_int8"],
               ms, plain_ms, bound_ms,
               f"sum of the 8 layer forms, one launch each, B={batch} "
-              f"768x512"),
-        entry("rans_encode", pkg + "rans_encode.cu",
-              "simple_image_compression_network_tpu/codec/pallas_rans.py:514",
-              launches["rans_encode"], errs["rans_encode"],
-              enc_ms, enc_plain, enc_bytes / PEAK_BYTES * 1e3,
-              f"one launch, S={s} t={t} N={n}"),
-        entry("rans_decode", pkg + "rans_decode.cu",
-              "simple_image_compression_network_tpu/codec/pallas_rans.py:121",
-              launches["rans_decode"], errs["rans_decode"],
-              dec_ms, dec_plain, dec_bytes / PEAK_BYTES * 1e3,
-              f"one launch, S={s} t={t} N={n}"),
+              f"768x512", by="operations"),
+        entry("rans_encode", "rans_encode.cu", "codec/pallas_rans.py:514",
+              errs["rans_encode"], bc["enc_ms"], bc["enc_plain"],
+              bc["enc_bound"], f"one launch, {bc['shape']} (int8 latent)",
+              z_shapes=z_shapes(bc_z, "enc")),
+        entry("rans_decode", "rans_decode.cu", "codec/pallas_rans.py:121",
+              errs["rans_decode"], bc["dec_ms"], bc["dec_plain"],
+              bc["dec_bound"], f"one launch, {bc['shape']} (int8 latent)",
+              z_shapes=z_shapes(bc_z, "dec")),
+        entry("rans_encode_ctx", "rans_encode.cu",
+              "codec/pallas_rans.py:549", errs["rans_encode_ctx"],
+              de["enc_ms"], de["enc_plain"], de["enc_bound"],
+              f"one launch, {de['shape']} R=64 (hyper y)"),
+        entry("rans_decode_ctx", "rans_decode.cu",
+              "codec/pallas_rans.py:275", errs["rans_decode_ctx"],
+              de["dec_ms"], de["dec_plain"], de["dec_bound"],
+              f"one launch, {de['shape']} R=64 (hyper y)"),
     ]
 
 
-def reset_counts() -> None:
+def counted():
+    """name -> the wrapper that counts that kernel's launches."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
-    for fn in (cuda_conv.conv3x3_s1_int8, cuda_rans.encode_batch_compact,
-               cuda_rans.decode):
+    return {"conv3x3_s1_int8": cuda_conv.conv3x3_s1_int8,
+            "rans_encode": cuda_rans.encode_batch_compact,
+            "rans_decode": cuda_rans.decode,
+            "rans_encode_ctx": cuda_rans.encode_batch_compact_ctx,
+            "rans_decode_ctx": cuda_rans.decode_ctx}
+
+
+def reset_counts() -> None:
+    for fn in counted().values():
         fn.launches = 0
         fn.plain_runs = 0
+
+
+def read_counts(path: str, kernels) -> dict:
+    """The launch counts of ``kernels`` right after a path; fails unless
+    each launched and no plain version ran."""
+    fns = counted()
+    counts = {k: fns[k].launches for k in kernels}
+    plain = sum(fn.plain_runs for fn in fns.values())
+    log(f"launches on the {path} path: {counts}, plain runs: {plain}")
+    if min(counts.values()) < 1 or plain:
+        raise AssertionError(f"the {path} path did not run on every kernel")
+    return counts
 
 
 def main_path(seed: int, batch: int, dev, card: str) -> dict:
     """compress_batch then decompress_batch at 768x512, checked against the
     golden transform.  Returns the launch counts, read right after."""
-    from simple_image_compression_network_tpu_torch.codec import (
-        cuda_rans, int_codec)
+    from simple_image_compression_network_tpu_torch.codec import int_codec
     from simple_image_compression_network_tpu_torch.models import codec_int
-    from simple_image_compression_network_tpu_torch.ops import cuda_conv
     from simple_image_compression_network_tpu_torch.utils import weights_io
 
     ckpt = os.path.join(ROOT, "checkpoints")
@@ -315,15 +461,8 @@ def main_path(seed: int, batch: int, dev, card: str) -> dict:
     x_hat, z_hat = int_codec.decompress_batch(net, blobs, static_cdfs=cdfs)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counts = {"conv3x3_s1_int8": cuda_conv.conv3x3_s1_int8.launches,
-              "rans_encode": cuda_rans.encode_batch_compact.launches,
-              "rans_decode": cuda_rans.decode.launches}
-    plain = (cuda_conv.conv3x3_s1_int8.plain_runs
-             + cuda_rans.encode_batch_compact.plain_runs
-             + cuda_rans.decode.plain_runs)
-    log(f"launches on the main path: {counts}, plain runs: {plain}")
-    if min(counts.values()) < 1 or plain:
-        raise AssertionError("the main path did not run on every kernel")
+    counts = read_counts("int8", ("conv3x3_s1_int8", "rans_encode",
+                                  "rans_decode"))
     mem = torch.cuda.max_memory_allocated()
 
     # golden: direct 5x5 convs and lhs-dilated deconvs in float64, no kernel
@@ -356,6 +495,129 @@ def main_path(seed: int, batch: int, dev, card: str) -> dict:
         f"decode {dec_ms} ms ({mp / (t2 - t1)} MP/s), peak device memory "
         f"{mem} bytes; z_hat == golden, x_hat == golden")
     return counts
+
+
+def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
+    """The scale-hyperprior codec's compress_batch then decompress_batch at
+    768x512 with the trained checkpoint: y_hat and z_hat must equal the
+    encoder's integers.  Returns the launch counts, read right after."""
+    x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
+    x = x.to(torch.float32) / 255.0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    blobs = codec.compress_batch(x)                               # warm-up
+    codec.decompress_batch(blobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blobs = codec.compress_batch(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_hat, y_hat, z_hat = codec.decompress_batch(blobs, return_z=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts("hyper", ("rans_encode", "rans_decode",
+                                   "rans_encode_ctx", "rans_decode_ctx"))
+    mem = torch.cuda.max_memory_allocated()
+
+    y, z, _ = codec.encode_parts(x)
+    require_equal("hyper y_hat == round(y)", y_hat, y)
+    require_equal("hyper z_hat == round(h_a(y))", z_hat, z)
+    if x_hat.shape != (batch, H, W, 3) or not bool(
+            torch.isfinite(x_hat).all()):
+        raise AssertionError(f"hyper x_hat: shape {tuple(x_hat.shape)} "
+                             f"or non-finite values")
+    from simple_image_compression_network_tpu_torch.codec import container
+    _, sections = container.unpack(blobs[-1])
+    y_end = len(blobs[-1]) - len(sections[3]) - len(sections[4])
+    bad = bytearray(blobs[-1])
+    bad[y_end - len(sections[2]) // 2] ^= 0xFF    # a word of the y streams
+    try:
+        codec.decompress_batch(blobs[:-1] + [bytes(bad)])
+    except ValueError as e:
+        log(f"corrupt hyper container rejected: {e}")
+    else:
+        raise AssertionError("a corrupt hyper container decoded without "
+                             "error")
+
+    # cuDNN may choose other algorithms for h_s at B = 1: a sigma that moves
+    # across a scale-bin edge desyncs the y streams.  Counted, not failed.
+    same = 0
+    for i, blob in enumerate(blobs):
+        try:
+            _, y1 = codec.decompress_batch([blob])
+            same += int(torch.equal(y1[0], y_hat[i]))
+        except ValueError as e:
+            log(f"hyper image {i} decoded alone: {e}")
+    log(f"hyper: {same} of {batch} containers decoded alone give the batch "
+        f"decode's y_hat")
+
+    n_bytes = sum(len(b) for b in blobs)
+    mse = torch.mean((x_hat.clamp(0, 1) - x) ** 2).item()
+    mp = batch * H * W / 1e6
+    log(f"hyper path [{card}]: B={batch} 768x512, {n_bytes} container "
+        f"bytes, {8 * n_bytes / (batch * H * W)} bpp, PSNR "
+        f"{10 * np.log10(1.0 / mse)} dB")
+    log(f"hyper path [{card}]: encode {(t1 - t0) * 1e3} ms "
+        f"({mp / (t1 - t0)} MP/s), decode {(t2 - t1) * 1e3} ms "
+        f"({mp / (t2 - t1)} MP/s), peak device memory {mem} bytes; "
+        f"y_hat == round(y), z_hat == round(z)")
+    return counts
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Mean host-clock time of fn() ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def hyper_breakdown(seed: int, batch: int, dev, codec) -> None:
+    """Where the hyper path's time goes: each stage alone (host clock,
+    synchronized), g_s under other cuDNN settings, and the device kernels
+    of one compress + decompress by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    model = codec.model
+    x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
+    x = x.to(torch.float32) / 255.0
+    y, z = model.analysis_arrays(x)
+    sigma = model.scales_from_z(z)
+    ctx = codec._scale_ctx(sigma)
+    yi, zi = torch.round(y).to(torch.int32), z.to(torch.int32)
+    y_hat = yi.to(torch.float32)
+    blobs = codec.compress_batch(x)
+    stages = [
+        ("compress_batch", lambda: codec.compress_batch(x)),
+        ("  g_a + h_a (analysis_arrays)", lambda: model.analysis_arrays(x)),
+        ("  h_s (scales_from_z)", lambda: model.scales_from_z(z)),
+        ("  scale bins", lambda: codec._scale_ctx(sigma)),
+        ("  entropy_encode (B, D, fetches, packing)",
+         lambda: codec.entropy_encode(yi, zi, ctx, H, W)),
+        ("decompress_batch", lambda: codec.decompress_batch(blobs)),
+        ("  g_s (decode_arrays)", lambda: model.decode_arrays(y_hat)),
+    ]
+    for name, fn in stages:
+        log(f"hyper breakdown B={batch}: {name}: {host_ms(fn)} ms")
+    y_nchw = y_hat.permute(0, 3, 1, 2).contiguous()
+    for det, tf32 in ((True, False), (False, False), (False, True)):
+        def g_s():
+            with torch.no_grad(), torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=det,
+                    allow_tf32=tf32):
+                model.g_s(y_nchw)
+        log(f"hyper breakdown B={batch}: g_s alone, cuDNN deterministic={det} "
+            f"tf32={tf32}: {host_ms(g_s)} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        codec.decompress_batch(codec.compress_batch(x))
+        torch.cuda.synchronize()
+    log(prof.key_averages().table(sort_by="device_time_total",
+                                  row_limit=25, max_name_column_width=70))
 
 
 def main() -> int:
@@ -391,14 +653,34 @@ def main() -> int:
     cdfs = weights_io.load_static_cdfs(
         os.path.join(ROOT, "checkpoints", "latent_cdfs.npz"))
 
+    with phase("hyperprior checkpoint and tables"):
+        from simple_image_compression_network_tpu_torch.codec import (
+            hyper_codec)
+        if not os.path.exists(HYPER_CKPT):
+            raise FileNotFoundError(
+                f"{HYPER_CKPT} is missing: the hyper path needs it "
+                f"(.chiprunignore must let this one checkpoint through)")
+        codec = hyper_codec.HyperCodec.from_checkpoint(HYPER_CKPT,
+                                                       device=dev)
+
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
+        check_hyper_kernels(rng, codec, args.batch, dev, errs)
 
-    with phase("main path at 768x512"):
-        launches = main_path(args.seed, args.batch, dev, smi)
+    with phase("int8 main path at 768x512"):
+        int8 = main_path(args.seed, args.batch, dev, smi)
+    with phase("hyper path at 768x512"):
+        hyper = hyper_path(args.seed, args.batch, dev, smi, codec)
+    launches = {name: {path: c[name] for path, c in (("int8", int8),
+                                                     ("hyper", hyper))
+                       if name in c} for name in counted()}
 
-    with phase("kernel timing at the main path's shapes"):
-        kernels = time_kernels(rng, cdfs, args.batch, dev, errs, launches)
+    with phase("kernel timing at the paths' shapes"):
+        kernels = time_kernels(rng, cdfs, codec, args.batch, dev, errs,
+                               launches)
+
+    with phase("hyper path breakdown"):
+        hyper_breakdown(args.seed, args.batch, dev, codec)
 
     faulthandler.cancel_dump_traceback_later()
     log(smi_line())

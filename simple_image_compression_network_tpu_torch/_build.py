@@ -35,6 +35,10 @@ _SIGNATURES = {
     "sicn_conv3x3_s1_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sicn_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sicn_rans_encode_ctx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "sicn_rans_decode_ctx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,21 @@
-"""Batched interleaved-rANS encode (kernel B) and decode (kernel C).
+"""Batched interleaved-rANS encode (kernels B, D) and decode (C, E).
 
-The counterpart of the JAX package's ``codec/pallas_rans.py``
-(``encode_batch_compact`` with ``ctx=None`` -> ``_encode_compact_kernel``,
-``decode`` -> ``_decode_kernel``, ``split_init``).  On CUDA tensors the
-wrappers launch the hand-written kernels of ``csrc/rans_encode.cu`` and
-``csrc/rans_decode.cu``; on CPU tensors they run the plain versions built
-on ``codec/device_rans.py``.  Each wrapper counts its kernel launches
-(``.launches``) and its plain runs (``.plain_runs``).
+The counterpart of the JAX package's ``codec/pallas_rans.py``:
+
+* ``encode_batch_compact`` -> ``_encode_compact_kernel`` (kernel B; with
+  ``ctx`` it hands over to ``encode_batch_compact_ctx``, kernel D, which
+  replaces ``_encode_compact_ctx_kernel``);
+* ``decode`` -> ``_decode_kernel`` (kernel C);
+* ``decode_ctx`` -> ``_decode_ctx_kernel`` (kernel E);
+* ``split_init``.
+
+B and C code with one fixed CDF row per lane; D and E take each symbol's
+row from a shared (R, L+1) table by an int32 context per symbol.  On CUDA
+tensors the wrappers launch the hand-written kernels of
+``csrc/rans_encode.cu`` and ``csrc/rans_decode.cu``; on CPU tensors they
+run the plain versions built on ``codec/device_rans.py``.  Each wrapper
+counts its kernel launches (``.launches``) and its plain runs
+(``.plain_runs``).
 
 u16 stream words travel as int16 tensors holding the bit patterns; u32
 states as int32 tensors.  CDF precision is 16 (the codec's only setting).
@@ -14,7 +23,7 @@ states as int32 tensors.  CDF precision is 16 (the codec's only setting).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,16 +55,32 @@ def encode_batch_compact_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
     return words.to(torch.int16), counts.to(torch.int32)
 
 
-def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor
+def _check_ctx_table(table: torch.Tensor, ctx: torch.Tensor,
+                     shape, device) -> None:
+    if table.dim() != 2 or table.dtype != torch.int32:
+        raise ValueError(f"table must be (R, L+1) int32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if ctx.dtype != torch.int32 or tuple(ctx.shape) != tuple(shape):
+        raise ValueError(f"ctx must be {tuple(shape)} int32, got "
+                         f"{tuple(ctx.shape)} {ctx.dtype}")
+    if table.device != device or ctx.device != device:
+        raise ValueError("table and ctx must be on the symbols' device")
+
+
+def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor,
+                         ctx: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode S streams, state loop and stream compaction on the card.
 
     syms: (S, t, N) int8 symbols in [0, L) (the int8 latent reshaped);
-    lane_cdf: (N, L+1) int32 CDF row per lane.
+    lane_cdf: (N, L+1) int32 CDF row per lane.  With ``ctx`` this is
+    ``encode_batch_compact_ctx(syms, lane_cdf, ctx)`` (kernel D).
     Returns (words (S, 2N + t*N) int16, counts (S,) int32):
     words[s, :counts[s]] is stream s past its header (flush words, then
     payload), zeros after.  The buffer holds the 1-word-per-symbol worst
     case, so no stream can overflow it."""
+    if ctx is not None:
+        return encode_batch_compact_ctx(syms, lane_cdf, ctx)
     if syms.dim() != 3 or syms.dtype != torch.int8:
         raise ValueError("syms must be (S, t, N) int8")
     s, t_steps, n = syms.shape
@@ -82,6 +107,51 @@ def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor
 
 encode_batch_compact.launches = 0
 encode_batch_compact.plain_runs = 0
+
+
+def encode_batch_compact_ctx_plain(syms: torch.Tensor, table: torch.Tensor,
+                                   ctx: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel D (``device_rans.encode`` with ctx)."""
+    words, counts = device_rans.encode(syms, table, ctx)
+    return words.to(torch.int16), counts.to(torch.int32)
+
+
+def encode_batch_compact_ctx(syms: torch.Tensor, table: torch.Tensor,
+                             ctx: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D: encode S streams whose symbols pick their CDF rows.
+
+    syms: (S, t, N) int32 symbols in [0, L); ctx: (S, t, N) int32 row
+    indices in [0, R); table: (R, L+1) int32 shared CDF table.  Returns
+    the words/counts layout of ``encode_batch_compact``."""
+    if syms.dim() != 3 or syms.dtype != torch.int32:
+        raise ValueError("syms must be (S, t, N) int32")
+    s, t_steps, n = syms.shape
+    _check_ctx_table(table, ctx, syms.shape, syms.device)
+    if syms.device.type == "cpu":
+        encode_batch_compact_ctx.plain_runs += 1
+        return encode_batch_compact_ctx_plain(syms, table, ctx)
+    _cuda_ready(syms, ctx, table)
+    width = 2 * n + t_steps * n
+    words = torch.zeros((s, width), dtype=torch.int16, device=syms.device)
+    counts = torch.empty((s,), dtype=torch.int32, device=syms.device)
+    scratch = torch.empty((s, t_steps, n), dtype=torch.int32,
+                          device=syms.device)
+    lib = _build.lib()
+    with torch.cuda.device(syms.device):
+        err = lib.sicn_rans_encode_ctx(
+            syms.data_ptr(), ctx.data_ptr(), table.data_ptr(),
+            scratch.data_ptr(), words.data_ptr(), counts.data_ptr(), s,
+            t_steps, n, table.shape[0], table.shape[1], width,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rans encode ctx")
+    encode_batch_compact_ctx.launches += 1
+    return words, counts
+
+
+encode_batch_compact_ctx.launches = 0
+encode_batch_compact_ctx.plain_runs = 0
 
 
 def split_init(words: torch.Tensor, n_lanes: int) -> torch.Tensor:
@@ -142,3 +212,56 @@ def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
 
 decode.launches = 0
 decode.plain_runs = 0
+
+
+def decode_ctx_plain(words: torch.Tensor, x0: torch.Tensor,
+                     table: torch.Tensor, ctx: torch.Tensor, t_steps: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel E (``device_rans.decode`` with ctx)."""
+    syms, consumed, x_fin = device_rans.decode(words, x0, table, t_steps,
+                                               ctx)
+    return (syms.to(torch.int32), consumed.to(torch.int32),
+            x_fin.to(torch.int32))
+
+
+def decode_ctx(words: torch.Tensor, x0: torch.Tensor, table: torch.Tensor,
+               ctx: torch.Tensor, t_steps: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel E: decode S streams whose symbols pick their CDF rows.
+
+    words, x0 as in ``decode``; table: (R, L+1) int32 shared CDF table,
+    rows increasing; ctx: (S, t, N) int32 row indices.
+    Returns (syms (S, t, N) int32, consumed (S,) int32, x_fin (S, N)
+    int32); the caller checks consumed and x_fin as for ``decode``."""
+    if words.dim() != 2 or words.dtype != torch.int16:
+        raise ValueError("words must be (S, cap) int16")
+    if x0.dim() != 2 or x0.dtype != torch.int32 or x0.shape[0] != \
+            words.shape[0]:
+        raise ValueError("x0 must be (S, N) int32")
+    s, cap = words.shape
+    n = x0.shape[1]
+    _check_ctx_table(table, ctx, (s, t_steps, n), words.device)
+    if x0.device != words.device:
+        raise ValueError("words and x0 must be on one device")
+    if words.device.type == "cpu":
+        decode_ctx.plain_runs += 1
+        return decode_ctx_plain(words, x0, table, ctx, t_steps)
+    _cuda_ready(words, x0, ctx, table)
+    syms = torch.empty((s, t_steps, n), dtype=torch.int32,
+                       device=words.device)
+    consumed = torch.empty((s,), dtype=torch.int32, device=words.device)
+    x_fin = torch.empty((s, n), dtype=torch.int32, device=words.device)
+    lib = _build.lib()
+    with torch.cuda.device(words.device):
+        err = lib.sicn_rans_decode_ctx(
+            words.data_ptr(), x0.data_ptr(), ctx.data_ptr(),
+            table.data_ptr(), syms.data_ptr(), consumed.data_ptr(),
+            x_fin.data_ptr(), s, cap, t_steps, n, table.shape[0],
+            table.shape[1], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rans decode ctx")
+    decode_ctx.launches += 1
+    return syms, consumed, x_fin
+
+
+decode_ctx.launches = 0
+decode_ctx.plain_runs = 0

@@ -2,9 +2,10 @@
 between stream bytes and word buffers.
 
 The counterpart of the JAX package's ``codec/device_rans.py``.  ``encode``
-and ``decode`` here are the plain versions of kernels B and C
-(``codec/cuda_rans.py``): every stream and every lane advances at once,
-one step of the serial loop per Python iteration.  They run on any device.
+and ``decode`` here are the plain versions of kernels B and C, and with a
+context tensor of kernels D and E (``codec/cuda_rans.py``): every stream
+and every lane advances at once, one step of the serial loop per Python
+iteration.  They run on any device.
 
 torch has no ``>>``, ``//`` or ``+`` for ``uint32`` on the CPU, so 32-bit
 states are held in int64 and masked to 32 bits where a u32 would wrap.
@@ -14,7 +15,7 @@ Word buffers hold u16 values; any integer dtype is accepted on input
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,19 +33,29 @@ def _lane_rows(lane_cdf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return lane_cdf[lanes.expand_as(idx), idx]
 
 
-def encode(syms: torch.Tensor, lane_cdf: torch.Tensor
+def _lookup(cdf: torch.Tensor, ctx, idx: torch.Tensor) -> torch.Tensor:
+    """CDF entry idx of each symbol's row: the lane's own row of an
+    (N, L+1) table (ctx None), else row ctx of a shared (R, L+1) table."""
+    return _lane_rows(cdf, idx) if ctx is None else cdf[ctx, idx]
+
+
+def encode(syms: torch.Tensor, cdf: torch.Tensor,
+           ctx: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode S streams: syms (S, t, N) -> (words (S, 2N + t*N) int64
     holding u16 values, counts (S,) int64).
 
-    lane_cdf: (N, L+1) CDF row of each lane (precision 16).  words[s, :
-    counts[s]] is stream s past its 8-byte header, bit-identical with the
-    JAX package's ``device_rans.encode`` and ``ilrans.encode``."""
+    cdf: (N, L+1) CDF row of each lane (precision 16), or with ctx
+    (S, t, N) row indices a shared (R, L+1) table whose row ctx[s, t, k]
+    codes symbol syms[s, t, k].  words[s, :counts[s]] is stream s past its
+    8-byte header, bit-identical with the JAX package's
+    ``device_rans.encode`` and ``ilrans.encode``."""
     s, t_steps, n = syms.shape
-    cdf = lane_cdf.to(torch.int64)
+    cdf = cdf.to(torch.int64)
     sy = syms.to(torch.int64)
-    starts = _lane_rows(cdf, sy)
-    freqs = _lane_rows(cdf, sy + 1) - starts
+    ctx = None if ctx is None else ctx.to(torch.int64)
+    starts = _lookup(cdf, ctx, sy)
+    freqs = _lookup(cdf, ctx, sy + 1) - starts
     x = torch.full((s, n), ilrans.STATE_LB, dtype=torch.int64,
                    device=syms.device)
     emits = torch.empty((s, t_steps, n), dtype=torch.int64,
@@ -90,27 +101,31 @@ def select_words(words: torch.Tensor, pos: torch.Tensor, rank: torch.Tensor
     return torch.where(idx < cap, got, torch.zeros_like(got))
 
 
-def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
-           t_steps: int
+def decode(words: torch.Tensor, x0: torch.Tensor, cdf: torch.Tensor,
+           t_steps: int, ctx: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode S streams: words (S, cap) u16 values (the 2N flush words
     first), x0 (S, N) initial states -> (syms (S, t, N) int64, consumed
-    (S,) int64, x_fin (S, N) int64).  A stream is valid iff consumed equals
-    its word count and every final state equals 2^16."""
+    (S,) int64, x_fin (S, N) int64).  cdf and ctx as in ``encode``.  A
+    stream is valid iff consumed equals its word count and every final
+    state equals 2^16."""
     s, cap = words.shape
     n = x0.shape[1]
     w = words.to(torch.int64) & _U16
     x = x0.to(torch.int64) & _U32
-    cdf = lane_cdf.to(torch.int64)
-    inner = cdf[:, 1:-1]                               # (N, L-1)
+    cdf = cdf.to(torch.int64)
+    ctx = None if ctx is None else ctx.to(torch.int64)
+    inner = cdf[:, 1:-1]                               # (N or R, L-1)
     pos = torch.full((s,), 2 * n, dtype=torch.int64, device=words.device)
     syms = torch.empty((s, t_steps, n), dtype=torch.int64,
                        device=words.device)
     for t in range(t_steps):
         slot = x & _U16
-        sym = (inner[None] <= slot[..., None]).sum(dim=-1)
-        start = _lane_rows(cdf, sym)
-        freq = _lane_rows(cdf, sym + 1) - start
+        ctx_t = None if ctx is None else ctx[:, t]
+        rows = inner[None] if ctx is None else inner[ctx_t]
+        sym = (rows <= slot[..., None]).sum(dim=-1)
+        start = _lookup(cdf, ctx_t, sym)
+        freq = _lookup(cdf, ctx_t, sym + 1) - start
         x = (freq * (x >> ilrans.PREC) + slot - start) & _U32
         need = x < ilrans.STATE_LB
         ni = need.to(torch.int64)
@@ -139,6 +154,23 @@ def words_from_bytes(data: bytes, cap: int) -> np.ndarray:
     out = np.zeros(cap, np.uint16)
     out[: w.size] = w
     return out
+
+
+def fetch_words(words: torch.Tensor, counts: np.ndarray) -> np.ndarray:
+    """(S, width) int16 device words -> host u16 words, cut to the longest
+    stream's count rounded up to the bucket."""
+    need = min(bucket_words(int(counts.max())), words.shape[1])
+    return words[:, :need].cpu().numpy().view(np.uint16)
+
+
+def gather_words(chunks: list) -> Tuple[np.ndarray, np.ndarray]:
+    """S ilrans streams -> ((S, cap) u16 words past each header, zero-
+    padded to a bucketed cap; (S,) int32 word counts)."""
+    off = ilrans.unpack_header(chunks[0])[3]
+    counts = np.asarray([(len(ch) - off) // 2 for ch in chunks], np.int32)
+    cap = bucket_words(int(counts.max()))
+    return (np.stack([words_from_bytes(ch[off:], cap) for ch in chunks]),
+            counts)
 
 
 def streams_from_words(words: np.ndarray, counts: np.ndarray, n_syms: int,

@@ -1,0 +1,276 @@
+"""Device-format bitstream codec for the scale-hyperprior model, on the card.
+
+The counterpart of the JAX package's ``codec/hyper_codec.py``
+(``HyperCodec.compress_batch``/``decompress_batch``, container
+``CODEC_HYPERPRIOR_DEV``, byte-identical with the JAX package's for the
+same integers):
+
+encode: x -> g_a -> y; h_a -> z_hat = round(z); sigma = h_s(z_hat);
+        z_hat coded with the learned factorized CDFs, one fixed row per
+        lane (kernel B); round(y) coded with the 64 scale-binned Gaussian
+        tables, the row of each symbol picked by its scale bin (kernel D).
+decode: z from its streams (kernel C) -> sigma -> scale bins -> y from its
+        streams (kernel E) -> g_s(y_hat).
+
+Both sides derive the scale bins from the same z_hat with the same program,
+so y_hat equals the encoder's rounded y exactly.  Values outside the
+tables' alphabets ([-63, 63] for z, [-127, 127] for y) are coded as an
+escape symbol and carried raw in side sections (``codec/escape.py``).
+
+Not ported yet (``NotImplementedError``): the host serial format
+(``compress``/``decompress``, ``codec/rans.py``) and ``MeanScaleCodec``.
+"""
+
+from __future__ import annotations
+
+import copy
+import struct
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.hyperprior import ScaleHyperprior
+from . import container, cuda_rans, device_rans, entropy, escape, ilrans
+from .int_codec import _pack_streams, _unpack_streams, plan_streams
+
+_Z_MAX = 63       # hyper-latent support [-63, 63] + escape
+_Y_MAX_DEV = 127  # latent support [-127, 127] + escape (device format)
+
+
+def build_factorized_cdfs(model: ScaleHyperprior,
+                          max_abs: int = _Z_MAX) -> np.ndarray:
+    """(N, 2*max_abs + 3) int32: the learned per-channel density of z on
+    the integer grid, plus the overflow (escape) bucket.  Evaluated on the
+    host in float32 wherever the model lives, so both ends of a link build
+    the same table."""
+    bottleneck = copy.deepcopy(model.bottleneck).to("cpu")
+    grid = torch.arange(-max_abs, max_abs + 1, dtype=torch.float32)
+    with torch.no_grad():
+        pmf = bottleneck.likelihood(
+            grid[:, None].repeat(1, bottleneck.channels)).numpy()
+    rows = []
+    for ch in range(bottleneck.channels):
+        p = pmf[:, ch]
+        overflow = max(1.0 - p.sum(), 0.0)
+        rows.append(entropy.quantize_cdf(np.append(p, overflow)))
+    return np.stack(rows)
+
+
+def build_gaussian_cdfs(scale_table: np.ndarray, max_abs: int) -> np.ndarray:
+    """(len(scale_table), 2*max_abs + 3) int32 Gaussian tables."""
+    return np.stack([entropy.gaussian_cdf_table(s, max_abs)
+                     for s in scale_table])
+
+
+def _plan_lanes(n_pix: int, channels: int, lane_mult: int = 2,
+                n_streams: int = 8) -> Tuple[int, int, int]:
+    """-> (n_streams, n_lanes, t_steps) for a (P, C) channel-fastest latent."""
+    s, lm = plan_streams(n_pix, lane_mult, n_streams)
+    n_lanes = lm * channels
+    return s, n_lanes, (n_pix // lm) // s
+
+
+def _patch_escapes(vals: torch.Tensor, raws: Sequence[bytes],
+                   max_abs: int) -> torch.Tensor:
+    """Decoded values (escapes as max_abs + 1) + raw side sections ->
+    exact values.  Host work, only for batches that carry raws."""
+    if not any(escape.unpack_raw(r)[0].size for r in raws):
+        return vals
+    syms = vals.cpu().numpy() + max_abs
+    out = np.stack([escape.from_symbols(syms[i], escape.unpack_raw(r)[0],
+                                        max_abs).reshape(syms.shape[1:])
+                    for i, r in enumerate(raws)])
+    return torch.from_numpy(out.astype(np.int32)).to(vals.device)
+
+
+class HyperCodec:
+    """Encoder/decoder pair for ``ScaleHyperprior``, sharing its tables.
+
+    Runs on the model's device.  ``compress_batch``/``decompress_batch``
+    are the device format; the tables live on the device once built."""
+
+    def __init__(self, model: ScaleHyperprior):
+        self.model = model
+        self.scale_table = entropy.default_scale_table()
+        self.z_cdfs = build_factorized_cdfs(model)
+        self.y_cdfs_dev = build_gaussian_cdfs(self.scale_table, _Y_MAX_DEV)
+        self._tables: Dict[Tuple, torch.Tensor] = {}
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device=None) -> "HyperCodec":
+        """A codec for the JAX package's ``hp_scale_*.params.msgpack``."""
+        return cls(ScaleHyperprior.from_checkpoint(path, device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _dev_table(self, key: Tuple, build: Callable[[], np.ndarray]
+                   ) -> torch.Tensor:
+        """Device-resident int32 CDF table, uploaded once per geometry."""
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(np.ascontiguousarray(
+                build(), np.int32)).to(self.device)
+        return self._tables[key]
+
+    def _z_lane_cdf(self, n_lanes: int) -> torch.Tensor:
+        zc = self.z_cdfs.shape[0]
+        return self._dev_table(("z_lane", n_lanes), lambda: self.z_cdfs[
+            np.arange(n_lanes) % zc])
+
+    def _y_table(self) -> torch.Tensor:
+        return self._dev_table(("y",), lambda: self.y_cdfs_dev)
+
+    def _scale_ctx(self, sigma: torch.Tensor) -> torch.Tensor:
+        """Scale bin of each latent: #{k: table[k] < sigma}, clipped to the
+        last bin.  The table is compared in float32, as the JAX package
+        does: a float64 table puts some sigmas in other bins."""
+        table = torch.tensor(self.scale_table, dtype=torch.float32,
+                             device=sigma.device)
+        idx = torch.searchsorted(table, sigma.to(torch.float32).contiguous())
+        return idx.clamp(0, len(self.scale_table) - 1).to(torch.int32)
+
+    # --- encode ---------------------------------------------------------
+    def encode_parts(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x (B, X, Y, 3) in [0, 1] -> (round(y) int32, z_hat int32,
+        sigma float32), NHWC on the device.  sigma comes from the quantized
+        z_hat through ``scales_from_z``, the decoder's own program."""
+        y, z_hat = self.model.analysis_arrays(x)
+        sigma = self.model.scales_from_z(z_hat)
+        return (torch.round(y).to(torch.int32), z_hat.to(torch.int32),
+                sigma)
+
+    def compress_batch(self, x: torch.Tensor) -> List[bytes]:
+        """(B, X, Y, 3) [0, 1] images, X and Y multiples of 64 -> B
+        ``CODEC_HYPERPRIOR_DEV`` containers."""
+        if x.shape[1] % 64 or x.shape[2] % 64:
+            raise ValueError("hyperprior codecs need image sides divisible "
+                             "by 64 (16x analysis, 4x hyper stage)")
+        y, z, sigma = self.encode_parts(x)
+        return self.entropy_encode(y, z, self._scale_ctx(sigma),
+                                   x.shape[1], x.shape[2])
+
+    def entropy_encode(self, y: torch.Tensor, z: torch.Tensor,
+                       ctx_y: torch.Tensor, ix: int, iy: int) -> List[bytes]:
+        """Integer y (B, yx, yy, M), z (B, zx, zy, N) and y's scale bins
+        -> B containers.  Two kernel launches (z on B, y on D), one fetch
+        of counts and escape totals, one of each tensor's words, and the
+        raw values only for batches that have escapes."""
+        b, yx, yy, yc = y.shape
+        _, zx, zy, zc = z.shape
+        s_z, nl_z, t_z = _plan_lanes(zx * zy, zc)
+        s_y, nl_y, t_y = _plan_lanes(yx * yy, yc)
+        zs = escape.to_symbols(z, _Z_MAX).to(torch.int8)
+        zw, zcnt = cuda_rans.encode_batch_compact(
+            zs.reshape(b * s_z, t_z, nl_z), self._z_lane_cdf(nl_z))
+        ys = escape.to_symbols(y, _Y_MAX_DEV)
+        yw, ycnt = cuda_rans.encode_batch_compact(
+            ys.reshape(b * s_y, t_y, nl_y), self._y_table(),
+            ctx=ctx_y.to(torch.int32).reshape(b * s_y, t_y, nl_y)
+            .contiguous())
+        z_esc = (z.abs() > _Z_MAX).reshape(b, -1).sum(1)
+        y_esc = (y.abs() > _Y_MAX_DEV).reshape(b, -1).sum(1)
+        meta = torch.cat([zcnt, ycnt, z_esc.to(torch.int32),
+                          y_esc.to(torch.int32)]).cpu().numpy()
+        zcnt_np, ycnt_np = meta[:b * s_z], meta[b * s_z: b * (s_z + s_y)]
+        z_esc_np = meta[b * (s_z + s_y): b * (s_z + s_y) + b]
+        y_esc_np = meta[b * (s_z + s_y) + b:]
+        z_chunks = device_rans.streams_from_words(
+            device_rans.fetch_words(zw, zcnt_np), zcnt_np, t_z * nl_z, nl_z)
+        y_chunks = device_rans.streams_from_words(
+            device_rans.fetch_words(yw, ycnt_np), ycnt_np, t_y * nl_y, nl_y)
+        z_np = z.cpu().numpy() if z_esc_np.any() else None
+        y_np = y.cpu().numpy() if y_esc_np.any() else None
+
+        header = struct.pack("<HHHHHHHH", ix, iy, zx, zy, zc, yx, yy, yc)
+        out = []
+        for i in range(b):
+            z_raw = escape.pack_raw(
+                z_np[i] if z_np is not None else np.zeros(0), _Z_MAX)
+            y_raw = escape.pack_raw(
+                y_np[i] if y_np is not None else np.zeros(0), _Y_MAX_DEV)
+            out.append(container.pack(container.CODEC_HYPERPRIOR_DEV, [
+                header,
+                _pack_streams(z_chunks[i * s_z: (i + 1) * s_z]),
+                _pack_streams(y_chunks[i * s_y: (i + 1) * s_y]),
+                z_raw, y_raw]))
+        return out
+
+    # --- decode ---------------------------------------------------------
+    def decompress_batch(self, blobs: Sequence[bytes], return_z: bool = False
+                         ) -> Tuple[torch.Tensor, ...]:
+        """B containers of one geometry -> (x_hat (B, X, Y, 3), y_hat
+        (B, X/16, Y/16, M)) float32 on the device, and z_hat with
+        ``return_z``.  Raises ValueError for a corrupt container (a stream
+        whose words consumed != its length, or a final state != 2^16)."""
+        metas = []
+        for data in blobs:
+            cid, sections = container.unpack(data)
+            if cid != container.CODEC_HYPERPRIOR_DEV or len(sections) != 5:
+                raise ValueError("not a device-format hyperprior container")
+            hdr, z_pay, y_pay, z_raw, y_raw = sections
+            metas.append((struct.unpack("<HHHHHHHH", hdr),
+                          _unpack_streams(z_pay), _unpack_streams(y_pay),
+                          z_raw, y_raw))
+        if any(m[0] != metas[0][0] for m in metas):
+            raise ValueError("mixed geometries in one batch")
+        (_, _, zx, zy, zc, yx, yy, yc) = metas[0][0]
+        b = len(blobs)
+        s_z, nl_z, t_z = _plan_lanes(zx * zy, zc)
+        s_y, nl_y, t_y = _plan_lanes(yx * yy, yc)
+        if any(len(m[1]) != s_z or len(m[2]) != s_y for m in metas):
+            raise ValueError("stream plan does not match the geometry")
+        dev = self.device
+        zw_np, zc_np = device_rans.gather_words(
+            [ch for m in metas for ch in m[1]])
+        yw_np, yc_np = device_rans.gather_words(
+            [ch for m in metas for ch in m[2]])
+        zw = torch.from_numpy(zw_np.view(np.int16)).to(dev)
+        yw = torch.from_numpy(yw_np.view(np.int16)).to(dev)
+
+        z_syms, z_cons, z_fin = cuda_rans.decode(
+            zw, cuda_rans.split_init(zw, nl_z), self._z_lane_cdf(nl_z), t_z)
+        z_vals = z_syms.to(torch.int32).reshape(b, zx, zy, zc) - _Z_MAX
+        z_hat = _patch_escapes(z_vals, [m[3] for m in metas],
+                               _Z_MAX).to(torch.float32)
+
+        ctx_y = self._scale_ctx(self.model.scales_from_z(z_hat))
+        y_syms, y_cons, y_fin = cuda_rans.decode_ctx(
+            yw, cuda_rans.split_init(yw, nl_y), self._y_table(),
+            ctx_y.reshape(b * s_y, t_y, nl_y).contiguous(), t_y)
+        y_vals = y_syms.reshape(b, yx, yy, yc) - _Y_MAX_DEV
+        y_hat = _patch_escapes(y_vals, [m[4] for m in metas],
+                               _Y_MAX_DEV).to(torch.float32)
+        x_hat = self.model.decode_arrays(y_hat)
+
+        lb = ilrans.STATE_LB
+        ok = torch.cat([z_cons, (z_fin == lb).all(1).to(torch.int32),
+                        y_cons, (y_fin == lb).all(1).to(torch.int32)]
+                       ).cpu().numpy()
+        n_z, n_y = zc_np.size, yc_np.size
+        if not ((ok[:n_z] == zc_np).all() and ok[n_z: 2 * n_z].all()):
+            raise ValueError("corrupt hyper-latent stream")
+        o = 2 * n_z
+        if not ((ok[o: o + n_y] == yc_np).all() and ok[o + n_y:].all()):
+            raise ValueError("corrupt latent stream")
+        return (x_hat, y_hat, z_hat) if return_z else (x_hat, y_hat)
+
+    # --- not ported yet -------------------------------------------------
+    def compress(self, x: torch.Tensor) -> bytes:
+        raise NotImplementedError(
+            "the host serial hyperprior format (codec/rans.py) is not "
+            "ported: use compress_batch")
+
+    def decompress(self, data: bytes):
+        raise NotImplementedError(
+            "the host serial hyperprior format (codec/rans.py) is not "
+            "ported: use decompress_batch")
+
+
+class MeanScaleCodec(HyperCodec):
+    """Not ported yet: the mean-scale hyperprior's codec."""
+
+    def __init__(self, model):
+        raise NotImplementedError("MeanScaleCodec is not ported yet")

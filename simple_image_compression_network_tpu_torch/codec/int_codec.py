@@ -107,9 +107,7 @@ def compress_batch(net: IntCodecNet, x: torch.Tensor,
     words, counts = cuda_rans.encode_batch_compact(
         z.reshape(b * s, t_steps, n_lanes), lane_cdf)
     counts_np = counts.cpu().numpy()
-    need = min(device_rans.bucket_words(int(counts_np.max())),
-               words.shape[1])
-    flat_w = words[:, :need].cpu().numpy().view(np.uint16)
+    flat_w = device_rans.fetch_words(words, counts_np)
     chunks = device_rans.streams_from_words(flat_w, counts_np, n_syms,
                                             n_lanes)
     return [container.pack(container.CODEC_INT8,
@@ -142,17 +140,13 @@ def decompress_batch(net: IntCodecNet, streams: Sequence[bytes],
     if any(m[0] != metas[0][0] for m in metas):
         raise ValueError("mixed geometries in one batch")
     s = len(metas[0][1])
-    n_syms, n_lanes, _, off = ilrans.unpack_header(metas[0][1][0])
+    n_syms, n_lanes, _, _ = ilrans.unpack_header(metas[0][1][0])
     if n_syms * s != zx * zy * c:
         raise ValueError("stream plan does not cover the latent")
     t_steps = n_syms // n_lanes
 
-    chunks = [chunk for m in metas for chunk in m[1]]
-    true_counts = np.asarray([(len(ch) - off) // 2 for ch in chunks],
-                             np.int32)
-    cap = device_rans.bucket_words(int(true_counts.max()))
-    words = np.stack([device_rans.words_from_bytes(ch[off:], cap)
-                      for ch in chunks])
+    words, true_counts = device_rans.gather_words(
+        [chunk for m in metas for chunk in m[1]])
     dev = net.device
     wdev = torch.from_numpy(words.view(np.int16)).to(dev)
     lane_cdf = _lane_cdf_tensor(static_cdfs, n_lanes, dev)

@@ -1,17 +1,24 @@
-// Kernel B: interleaved-rANS encode with in-kernel stream compaction.
+// Kernels B and D: interleaved-rANS encode with in-kernel stream compaction.
 //
-// Replaces the TPU kernel codec/pallas_rans.py:_encode_compact_kernel
+// Kernel B replaces the TPU kernel codec/pallas_rans.py:_encode_compact_kernel
 // (-> _compact_encode_body, via encode_batch_compact with ctx=None) of the
-// JAX package.  Format: codec/ilrans.py (32-bit state in [2^16, 2^32),
-// 16-bit renormalisation words, 16-bit CDF precision, <= 1 word per symbol).
+// JAX package: int8 symbols, one fixed CDF row per lane.
+// Kernel D replaces codec/pallas_rans.py:_encode_compact_ctx_kernel (-> the
+// same body, via encode_batch_compact with ctx): int32 symbols, and each
+// symbol's row is ctx[s, t, k] of a shared (R, L+1) table (the hyperprior's
+// 64 scale bins).  The TPU kernel built each step's rows with a one-hot MXU
+// matmul at Precision.HIGHEST; here a row is a plain indexed load, and the
+// 64 x 257 int32 table (65,792 bytes) stays in L1/L2 through __ldg.
+// Format: codec/ilrans.py (32-bit state in [2^16, 2^32), 16-bit
+// renormalisation words, 16-bit CDF precision, <= 1 word per symbol).
 //
 // One block per stream, one thread per lane.
 //   Pass 1, t descending: the reverse state recurrence
 //       need = (x >> 16) >= freq;  emit x & 0xFFFF;  if need: x >>= 16
 //       x = ((x / freq) << 16) + x % freq + start
-//     with start/freq from the lane's CDF row (global memory; ~100 KB of
-//     distinct rows stays in L2).  Each step's word, or -1 for none, goes
-//     to a scratch buffer the wrapper allocates.
+//     with start/freq from the symbol's CDF row (global memory; the rows
+//     stay in L2).  Each step's word, or -1 for none, goes to a scratch
+//     buffer the wrapper allocates.
 //   Pass 2, t ascending: a block exclusive scan of the emit flags places
 //     each word at 2N + base + rank; base advances by the step's total.
 //   Header: (hi, lo) of the final state per lane, then counts = 2N + total.
@@ -20,9 +27,11 @@
 //
 // Bound on an H100 SXM: the serial chain of t state updates per lane (96 at
 // the flagship geometry), with a 32-bit division each, not bytes: per
-// 768x512 image the kernel reads 294,912 int8 symbols and writes at most
-// 2N + t*N u16 words (~0.6 MB together, ~0.2 us at 3.35 TB/s).  The grid
-// has only B*8 blocks of 384 threads, so most SMs idle at small batch.
+// 768x512 image kernel B reads 294,912 int8 symbols and writes at most
+// 2N + t*N u16 words (~0.6 MB together, ~0.2 us at 3.35 TB/s); kernel D
+// reads int32 symbols and contexts (2.4 MB per image).  The grid has only
+// B*8 blocks of 384 threads (B blocks of 256 for the hyper-latent), so
+// most SMs idle at small batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,12 +40,15 @@
 
 namespace {
 
-__global__ void rans_encode_kernel(const int8_t* __restrict__ syms,
-                                   const int* __restrict__ lane_cdf,
+// kCtx: rows from ctx into a shared (R, L1) table; else lane k's row k.
+template <typename Sym, bool kCtx>
+__global__ void rans_encode_kernel(const Sym* __restrict__ syms,
+                                   const int* __restrict__ ctx,
+                                   const int* __restrict__ table,
                                    int* __restrict__ scratch,
                                    int16_t* __restrict__ words,
                                    int* __restrict__ counts, int T, int N,
-                                   int L1, int W) {
+                                   int R, int L1, int W) {
   __shared__ int sh[32];
   const int s = blockIdx.x;
   const int k = threadIdx.x;
@@ -45,16 +57,22 @@ __global__ void rans_encode_kernel(const int8_t* __restrict__ syms,
   uint32_t x = 1u << 16;
 
   if (active) {
-    const int* row = lane_cdf + (size_t)k * L1;
+    const int* row = table + (size_t)(kCtx ? 0 : k) * L1;
     for (int t = T - 1; t >= 0; --t) {
-      int sym = syms[off + (size_t)t * N + k];
-      // out-of-alphabet input is the caller's error; clamp only so that
-      // the row read stays inside the table
+      const size_t i = off + (size_t)t * N + k;
+      // out-of-range input is the caller's error; clamp only so that the
+      // row read stays inside the table
+      if (kCtx) {
+        int c = __ldg(ctx + i);
+        c = c < 0 ? 0 : (c > R - 1 ? R - 1 : c);
+        row = table + (size_t)c * L1;
+      }
+      int sym = (int)syms[i];
       sym = sym < 0 ? 0 : (sym > L1 - 2 ? L1 - 2 : sym);
-      const uint32_t start = (uint32_t)row[sym];
-      const uint32_t freq = (uint32_t)row[sym + 1] - start;
+      const uint32_t start = (uint32_t)__ldg(row + sym);
+      const uint32_t freq = (uint32_t)__ldg(row + sym + 1) - start;
       const bool need = (x >> 16) >= freq;
-      scratch[off + (size_t)t * N + k] = need ? (int)(x & 0xFFFFu) : -1;
+      scratch[i] = need ? (int)(x & 0xFFFFu) : -1;
       if (need) x >>= 16;
       x = ((x / freq) << 16) + x % freq + start;
     }
@@ -77,18 +95,37 @@ __global__ void rans_encode_kernel(const int8_t* __restrict__ syms,
   if (k == 0) counts[s] = base;
 }
 
+template <typename Sym, bool kCtx>
+int launch(const void* syms, const void* ctx, const void* table,
+           void* scratch, void* words, void* counts, int S, int T, int N,
+           int R, int L1, int W, void* stream) {
+  const int threads = ((N + 31) / 32) * 32;
+  if (S <= 0 || T <= 0 || N <= 0 || threads > 1024 || R <= 0 || L1 < 2 ||
+      W < 2 * N + T * N)
+    return (int)cudaErrorInvalidValue;
+  rans_encode_kernel<Sym, kCtx><<<S, threads, 0, (cudaStream_t)stream>>>(
+      (const Sym*)syms, (const int*)ctx, (const int*)table, (int*)scratch,
+      (int16_t*)words, (int*)counts, T, N, R, L1, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Kernel B: int8 syms (S, T, N), lane_cdf (N, L1).
 extern "C" int sicn_rans_encode(const void* syms, const void* lane_cdf,
                                 void* scratch, void* words, void* counts,
                                 int S, int T, int N, int L1, int W,
                                 void* stream) {
-  const int threads = ((N + 31) / 32) * 32;
-  if (S <= 0 || T <= 0 || N <= 0 || threads > 1024 || L1 < 2 ||
-      W < 2 * N + T * N)
-    return (int)cudaErrorInvalidValue;
-  rans_encode_kernel<<<S, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)syms, (const int*)lane_cdf, (int*)scratch,
-      (int16_t*)words, (int*)counts, T, N, L1, W);
-  return (int)cudaGetLastError();
+  return launch<int8_t, false>(syms, nullptr, lane_cdf, scratch, words,
+                               counts, S, T, N, N, L1, W, stream);
+}
+
+// Kernel D: int32 syms and ctx (S, T, N), shared table (R, L1).
+extern "C" int sicn_rans_encode_ctx(const void* syms, const void* ctx,
+                                    const void* table, void* scratch,
+                                    void* words, void* counts, int S, int T,
+                                    int N, int R, int L1, int W,
+                                    void* stream) {
+  return launch<int32_t, true>(syms, ctx, table, scratch, words, counts, S,
+                               T, N, R, L1, W, stream);
 }

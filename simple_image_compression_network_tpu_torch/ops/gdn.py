@@ -1,0 +1,49 @@
+"""GDN / IGDN (generalized divisive normalization), forward only.
+
+The port of the JAX package's ``ops/gdn.py``, on NCHW tensors:
+
+    y_c = x_c / sqrt(beta_c + sum_d gamma[d, c] * x_d^2)     (GDN)
+    y_c = x_c * sqrt(beta_c + sum_d gamma[d, c] * x_d^2)     (IGDN)
+
+beta and gamma are stored raw and reparameterized as the JAX package does,
+``max(v, sqrt(min + 2^-18))^2 - 2^-18``.  The channel mix is a 1x1
+convolution whose weight is gamma transposed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_PEDESTAL = 2.0 ** -18
+
+
+def reparam(v: torch.Tensor, minimum: float = 0.0) -> torch.Tensor:
+    bound = (minimum + _PEDESTAL) ** 0.5
+    return torch.square(torch.clamp(v, min=bound)) - _PEDESTAL
+
+
+def _reparam_init(value: float) -> float:
+    return (value + _PEDESTAL) ** 0.5
+
+
+class GDN(nn.Module):
+    """Channelwise GDN over NCHW; ``inverse=True`` gives IGDN."""
+
+    def __init__(self, channels: int, inverse: bool = False,
+                 beta_min: float = 1e-6, gamma_init: float = 0.1):
+        super().__init__()
+        self.inverse = inverse
+        self.beta_min = beta_min
+        self.beta = nn.Parameter(torch.full((channels,), _reparam_init(1.0)))
+        self.gamma = nn.Parameter(_reparam_init(gamma_init)
+                                  * torch.eye(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        beta = reparam(self.beta, self.beta_min)
+        gamma = reparam(self.gamma)
+        c = gamma.shape[0]
+        mix = F.conv2d(torch.square(x), gamma.t().reshape(c, c, 1, 1), beta)
+        norm = torch.sqrt(mix)
+        return x * norm if self.inverse else x / norm

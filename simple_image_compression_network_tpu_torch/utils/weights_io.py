@@ -1,5 +1,6 @@
 """Checkpoint I/O for the port: the JAX package's ``.npz`` files, read with
-numpy and carried into torch tensors."""
+numpy, and its flax ``.msgpack`` hyperprior checkpoints, read with the
+port's own ``utils/msgpack_io.py``; both carried into torch tensors."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from . import msgpack_io
 
 
 def load_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -28,3 +31,46 @@ def load_static_cdfs(path: str) -> np.ndarray:
     """``latent_cdfs.npz`` -> (C, L+1) int32 per-channel latent CDFs."""
     with np.load(path) as z:
         return np.ascontiguousarray(z["cdfs"], np.int32)
+
+
+def load_hyper_checkpoint(path: str) -> dict:
+    """``hp_*.params.msgpack`` (``train_ckpt.save_params``) -> the flax
+    variables ``{"params": {"g_a": {...}, ...}}`` as nested numpy dicts."""
+    tree = msgpack_io.load(path)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: not a params checkpoint")
+    return tree["params"]
+
+
+def _leaf_to_torch(path: str, name: str, v: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.array(v))   # a writable copy
+    if name != "kernel":
+        return t            # biases, GDN and bottleneck raw values as-is
+    if "ConvTranspose" in path:
+        # (kh, kw, in, out) -> conv_transpose2d's (in, out, kh, kw); flax
+        # does not flip the kernel of a transposed conv, PyTorch does
+        return t.permute(2, 3, 0, 1).flip(2, 3).contiguous()
+    return t.permute(3, 2, 0, 1).contiguous()   # -> (out, in, kh, kw)
+
+
+def hyper_params_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
+    """Flax variables of a (scale-)hyperprior -> a ``state_dict`` of the
+    port's ``models/hyperprior.py`` modules (CPU float32 tensors).
+
+    Module names are kept (``g_a.Conv_0``, ``h_s.ConvTranspose_1``,
+    ``bottleneck.H0``); ``kernel`` becomes ``weight`` in PyTorch's layout.
+    GDN ``beta``/``gamma`` and the bottleneck's ``H*``/``b*``/``a*`` keep
+    their raw (pre-reparameterization) values."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for name, v in tree.items():
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(v, dict):
+                walk(v, path)
+            else:
+                key = (f"{prefix}.weight" if name == "kernel" else path)
+                out[key] = _leaf_to_torch(prefix, name, v)
+
+    walk(variables["params"], "")
+    return out

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from simple_image_compression_network_tpu_torch import _build
-from simple_image_compression_network_tpu_torch.models import codec_int
+from simple_image_compression_network_tpu_torch.codec import hyper_codec
+from simple_image_compression_network_tpu_torch.models import (
+    codec_int, hyperprior)
 from simple_image_compression_network_tpu_torch.utils import device
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -57,6 +59,30 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         codec_int.IntCodecNet(params)
     assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_hyper_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        hyperprior.ScaleHyperprior(n=4, m=6)
+    ckpt = os.path.join(ROOT, "checkpoints", "hp_scale_l0.01.params.msgpack")
+    with pytest.raises(RuntimeError):
+        hyper_codec.HyperCodec.from_checkpoint(ckpt)
+    model = hyperprior.ScaleHyperprior(n=4, m=6, device="cpu")
+    assert model.device == torch.device("cpu")
+    assert hyper_codec.HyperCodec(model).device == torch.device("cpu")
+
+
+def test_new_modules_fall_under_the_import_probe():
+    """The probe walks every module of the package; the hyper slice's
+    modules must be among them."""
+    import pkgutil
+    import simple_image_compression_network_tpu_torch as port
+    names = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")}
+    for mod in ("codec.hyper_codec", "codec.entropy", "codec.escape",
+                "models.hyperprior", "ops.gdn", "utils.msgpack_io"):
+        assert f"{port.__name__}.{mod}" in names
 
 
 def test_kernel_sources_use_no_pytorch_headers():
