@@ -5,21 +5,28 @@
 
 Builds the port's CUDA kernels from ``simple_image_compression_network_tpu_torch/
 csrc`` (one nvcc call), holds each kernel bit-exactly against its plain
-PyTorch version, then drives the port's two paths at full width on B
+PyTorch version (kernel F and kernel A's forms at the eight layers' shapes,
+and the halo modes), then drives the port's paths at full width on B
 random-seeded 768x512 images:
 
 * the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
   reference weights and the static latent CDFs, checked against the direct
   golden transform (plain float64 convolutions, independent of kernel A);
+* the int8 transform ``eight_layers_net`` under the JAX package's Pallas
+  plans (``pallas3`` on kernel F, ``pallas`` and ``pallas2`` on kernel A)
+  and tiled under ``pallas3``, each equal to the golden;
+* the dense-flag encoder ``encode_batch`` (kernel H) on the int8 latent,
+  equal to the compact encoder's words;
 * the scale-hyperprior codec's ``compress_batch`` then ``decompress_batch``
   with the trained ``checkpoints/hp_scale_l0.01.params.msgpack`` (N = 128,
   M = 192), checked for y_hat and z_hat equal to the encoder's integers.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
-paths' shapes beside its plain version and its bound, and the hyper path's
-time is broken down by stage (host clock) and by device kernel
-(torch.profiler).
+paths' shapes beside its plain version, its bound and, for the convs, one
+cuDNN call of the same layer (a yardstick the port never calls), and the
+hyper path's time is broken down by stage (host clock) and by device
+kernel (torch.profiler).
 
 Output: one line per phase with its seconds; then the card's name and
 power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line, and as the
@@ -57,6 +64,23 @@ LAYER_FORMS = [("L0 s2d", 12, 128), ("L1 s2d", 512, 128),
 # input grid of each form per 768x512 image (the coarse grid it runs on)
 FORM_GRID = [(384, 256), (192, 128), (96, 64), (48, 32),
              (48, 32), (96, 64), (192, 128), (192, 128)]
+# The eight layers at 768x512: (name, kind, input grid per image, ci, o).
+LAYERS = [("L0", "conv", (768, 512), 3, 128),
+          ("L1", "conv", (384, 256), 128, 128),
+          ("L2", "conv", (192, 128), 128, 128),
+          ("L3", "conv", (96, 64), 128, 192),
+          ("L4", "deconv", (48, 32), 192, 128),
+          ("L5", "deconv", (96, 64), 128, 128),
+          ("L6", "deconv", (192, 128), 128, 128),
+          ("L7", "deconv", (384, 256), 128, 3)]
+# The JAX package's Pallas plans and the launches each makes per pass.
+PLANS = {"pallas3": (("pallas3",) * 4 + ("pd2s3",) * 4,
+                     {"conv_sparse_int8": 8, "conv3x3_s1_int8": 0}),
+         "pallas": (("pallas",) * 4 + ("pd2s",) * 4,
+                    {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0}),
+         "pallas2": (("pallas2",) * 4 + ("pd2s2",) * 4,
+                     {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0})}
+TILE_X = 256
 
 
 def log(*args) -> None:
@@ -204,8 +228,10 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
         _lane_cdf)
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
 
-    errs = {"conv3x3_s1_int8": 0, "rans_encode": 0, "rans_decode": 0,
-            "rans_encode_ctx": 0, "rans_decode_ctx": 0}
+    errs = {"conv3x3_s1_int8": 0, "conv3x3_s1_int8 (pallas plan)": 0,
+            "conv_sparse_int8": 0, "rans_encode": 0, "rans_decode": 0,
+            "rans_encode_ctx": 0, "rans_decode_ctx": 0,
+            "rans_encode_dense": 0}
     for name, c, n in LAYER_FORMS:  # ragged 20x28: partial tiles both ways
         xs, w3, bias = conv_inputs(rng, 2, 20, 28, c, n, dev)
         got = cuda_conv.conv3x3_s1_int8(xs, w3, bias)
@@ -218,6 +244,17 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
         "kernel A 3x9x13x5 -> 20", cuda_conv.conv3x3_s1_int8(xs, w3, bias),
         cuda_conv.conv3x3_s1_int8_plain(xs.cpu(), w3.cpu(), bias.cpu())))
     log("kernel A: 8 layer forms at 2x20x28 and 3x9x13x5->20 bit-exact")
+    # the halo modes at L1's s2d form: the input carries the halo
+    for xv, yv in ((True, False), (False, True), (True, True)):
+        xs, w3, bias = conv_inputs(rng, 2, 192 + 2 * xv, 128 + 2 * yv, 512,
+                                   128, dev)
+        errs["conv3x3_s1_int8"] = max(errs["conv3x3_s1_int8"], require_equal(
+            f"kernel A halo x_valid={xv} y_valid={yv}",
+            cuda_conv.conv3x3_s1_int8(xs, w3, bias, x_valid=xv, y_valid=yv),
+            cuda_conv.conv3x3_s1_int8_plain(xs, w3, bias, x_valid=xv,
+                                            y_valid=yv)))
+    log("kernel A: halo modes x_valid, y_valid, both at "
+        "2x(192|194)x(128|130)x512->128 bit-exact")
 
     # the flagship geometry (S = 16 streams for B = 2, t = 96, N = 384),
     # then a ragged lane count that leaves part of a warp idle
@@ -232,7 +269,98 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
             syms, (lc,), t, n, errs, ("rans_encode", "rans_decode"))
         log(f"kernels B, C: S={s} t={t} N={n} bit-exact, "
             f"{int(counts.sum())} words")
+        # kernel H on the same symbols: against its plain version, and its
+        # assembled words against kernel B's over each stream's count
+        emits, needs, x_fin = cuda_rans.encode_dense(syms, lc)
+        ref = cuda_rans.encode_dense_plain(syms.cpu(), lc.cpu())
+        for what, g, r in zip(("words", "flags", "final states"),
+                              (emits, needs, x_fin), ref):
+            errs["rans_encode_dense"] = max(
+                errs["rans_encode_dense"],
+                require_equal(f"kernel H S={s} t={t} N={n} {what}", g, r))
+        words_h, counts_h = cuda_rans.encode_batch(syms, lc)
+        words_b, counts_b = cuda_rans.encode_batch_compact(syms, lc)
+        require_equal("kernel H counts == kernel B's", counts_h, counts_b)
+        for j in range(s):
+            require_equal(f"kernel H words == kernel B's, stream {j}",
+                          words_h[j, :counts_h[j]] & 0xFFFF,
+                          words_b[j, :counts_b[j]].to(torch.int64) & 0xFFFF)
+        log(f"kernel H: S={s} t={t} N={n} bit-exact, words and counts == "
+            f"kernel B's")
     return errs
+
+
+def layer_case(rng, batch: int, layer, dev, halo=(False, False)) -> dict:
+    """Random int8 input, int4 [O, 5, 5, I] weights and int8 bias of one
+    layer at its 768x512 shape, with the operands of kernel F (s2d input
+    or phase blocks, tap table) and of kernel A (the s2d / d2s form of the
+    Pallas plans).  ``halo``: the input carries the halo of the valid
+    modes (2 pixels a side for the conv, 1 for the deconv)."""
+    from simple_image_compression_network_tpu_torch.ops import (conv_fast,
+                                                                cuda_conv)
+    _, kind, (gx, gy), ci, o = layer
+    pad = 4 if kind == "conv" else 2
+    gx, gy = gx + pad * halo[0], gy + pad * halo[1]
+
+    def rand(shape, lo=-128, hi=128):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape,
+                                             dtype=np.int8)).to(dev)
+    x, w, b = rand((batch, gx, gy, ci)), rand((o, 5, 5, ci), -8, 8), rand((o,))
+    if kind == "conv":
+        xf = conv_fast.space_to_depth(x).contiguous()
+        taps, wt = cuda_conv.conv_taps_s2d(w)
+        bf, nb, w3 = b, 1, conv_fast.conv_weights_s2d(w)
+    else:
+        xf = x
+        taps, wt = cuda_conv.deconv_taps_d2s(w)
+        bf, nb = conv_fast.tile_bias(b, 4), 4
+        w3 = conv_fast.deconv_weights_d2s(w)
+    return {"x": x, "w": w, "b": b, "xf": xf, "taps": taps,
+            "wt": wt.contiguous(), "bf": bf.contiguous(), "nb": nb,
+            "w3": w3.contiguous(), "kind": kind,
+            "valid": {"x_valid": halo[0], "y_valid": halo[1]}}
+
+
+def run_f(c: dict, plain: bool = False) -> torch.Tensor:
+    from simple_image_compression_network_tpu_torch.ops import cuda_conv
+    fn = cuda_conv.conv_sparse_int8_plain if plain else \
+        cuda_conv.conv_sparse_int8
+    return fn(c["xf"], c["wt"], c["bf"], c["taps"], c["nb"], **c["valid"])
+
+
+def run_a(c: dict, plain: bool = False) -> torch.Tensor:
+    from simple_image_compression_network_tpu_torch.ops import cuda_conv
+    fn = cuda_conv.conv3x3_s1_int8_plain if plain else \
+        cuda_conv.conv3x3_s1_int8
+    return fn(c["xf"], c["w3"], c["bf"], **c["valid"])
+
+
+def check_layers(rng, batch: int, dev, errs: dict) -> None:
+    """Kernel F (conv and deconv forms) and kernel A's Pallas-plan forms at
+    the eight layers' shapes, each against its plain version on the card,
+    and F against A; then F's halo modes at L2 (conv) and L5 (deconv)."""
+    for layer in LAYERS:
+        c = layer_case(rng, batch, layer, dev)
+        got = run_f(c)
+        tag = f"{layer[0]} {layer[1]} {tuple(c['xf'].shape)}"
+        errs["conv_sparse_int8"] = max(errs["conv_sparse_int8"], require_equal(
+            f"kernel F {tag}", got, run_f(c, plain=True)))
+        a = run_a(c)
+        errs["conv3x3_s1_int8 (pallas plan)"] = max(
+            errs["conv3x3_s1_int8 (pallas plan)"],
+            require_equal(f"kernel A {tag}", a, run_a(c, plain=True)))
+        require_equal(f"kernel F == kernel A {tag}", got, a)
+    log(f"kernels F and A: the 8 layers at B={batch} 768x512 bit-exact, "
+        f"F == A")
+    for layer in (LAYERS[2], LAYERS[5]):
+        for halo in ((True, False), (False, True), (True, True)):
+            c = layer_case(rng, batch, layer, dev, halo)
+            errs["conv_sparse_int8"] = max(
+                errs["conv_sparse_int8"], require_equal(
+                    f"kernel F {layer[0]} halo {halo}", run_f(c),
+                    run_f(c, plain=True)))
+    log("kernel F: halo modes x_valid, y_valid, both at L2 (conv) and L5 "
+        "(deconv) bit-exact")
 
 
 def check_hyper_kernels(rng, codec, batch: int, dev, errs: dict) -> None:
@@ -304,10 +432,11 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
 
 
 def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
-                 launches: dict) -> list:
+                 launches: dict, layers: dict) -> list:
     """Each kernel at its paths' shapes: kernel, plain version (on the
     card) and bound.  Kernel A's plain version repeats its function, so its
-    outputs are compared too.  ``launches`` are the paths' counts."""
+    outputs are compared too.  ``launches`` are the paths' counts;
+    ``layers`` the per-layer sums of ``time_layers``."""
     from simple_image_compression_network_tpu_torch.codec import (
         cuda_rans, hyper_codec)
     from simple_image_compression_network_tpu_torch.codec.int_codec import (
@@ -336,7 +465,8 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     s_img, lm = plan_streams(zx * zy)
     s, n = batch * s_img, lm * 192
     t = zx * zy // lm // s_img
-    lane_cdf = np.ascontiguousarray(_lane_cdf(cdfs, n), np.int32)
+    lane_cdf = lane_cdf_int8 = np.ascontiguousarray(_lane_cdf(cdfs, n),
+                                                    np.int32)
     syms = torch.from_numpy(lane_symbols(rng, lane_cdf, s, t)).to(dev)
     bc = time_rans(cuda_rans.encode_batch_compact, cuda_rans.decode,
                    cuda_rans.encode_batch_compact_plain,
@@ -361,6 +491,19 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                    cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
                    (torch.from_numpy(y_table).to(dev),
                     torch.from_numpy(ctx).to(dev)), t, n, 4, 4)
+    # H at the int8 latent's shapes (the same symbols, as int32: the kernel
+    # reads int32, so the wrapper's cast is not timed)
+    syms = torch.from_numpy(lane_symbols(rng, lane_cdf_int8, s, t)).to(dev)
+    syms = syms.to(torch.int32)
+    lc = torch.from_numpy(lane_cdf_int8).to(dev)
+    h = {"ms": cuda_ms(lambda: cuda_rans.encode_dense(syms, lc), 20),
+         "plain": cuda_ms(lambda: cuda_rans.encode_dense_plain(syms, lc), 3),
+         "bound": (4 * syms.numel() + 4 * lc.numel()    # syms, table
+                   + 5 * syms.numel() + 4 * s * n)      # words, flags, x_fin
+         / PEAK_BYTES * 1e3}
+    log(f"kernel H S={s} t={t} N={n}: {h['ms']:.4f} ms (plain "
+        f"{h['plain']:.3f}, bound {h['bound']:.5f}); kernel B "
+        f"{bc['enc_ms']:.4f} ms at the same shape")
     for tag, r in (("B, C int8", bc), ("B, C z", bc_z), ("D, E y", de)):
         log(f"kernels {tag} {r['shape']}: encode {r['enc_ms']:.4f} ms "
             f"(plain {r['enc_plain']:.3f}, bound {r['enc_bound']:.5f}), "
@@ -371,23 +514,51 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     ref = "simple_image_compression_network_tpu/"
 
     def entry(name, source, replaces, err, k, p, bnd, unit, by="bytes",
-              **extra):
+              counter=None, **extra):
+        by_path = launches[counter or name]
         return {"name": name, "route": "cuda", "source": pkg + source,
                 "replaces": ref + replaces,
-                "launches": sum(launches[name].values()),
-                "launches_by_path": launches[name], "max_abs_err": err,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
                 "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": by,
                 "library_ms": None, "unit": unit, **extra}
+
+    # the cuDNN yardstick of the eight layers (bf16; float32 beside it)
+    lib = {"library_ms": layers["bf16"],
+           "library_max_abs_err": layers["lib_err"]["bf16"],
+           "library_fp32_ms": layers["fp32"],
+           "library_fp32_max_abs_err": layers["lib_err"]["fp32"],
+           "library": "torch.nn.functional.conv2d / conv_transpose2d, cuDNN, "
+                      "channels_last, sum of the 8 layers"}
 
     def z_shapes(r, kind):
         return {"shape": r["shape"], "ms": r[f"{kind}_ms"],
                 "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"]}
+    a_path = {k: v for k, v in launches["conv3x3_s1_int8"].items()
+              if k != "pallas"}
     return [
-        entry("conv3x3_s1_int8", "conv3x3_int8.cu",
-              "ops/pallas_conv.py:177", errs["conv3x3_s1_int8"],
-              ms, plain_ms, bound_ms,
-              f"sum of the 8 layer forms, one launch each, B={batch} "
-              f"768x512", by="operations"),
+        entry("conv3x3_s1_int8 (pallas plan)", "conv3x3_int8.cu",
+              "ops/pallas_conv.py:42", errs["conv3x3_s1_int8 (pallas plan)"],
+              layers["a"], layers["a_plain"], layers["a_bound"],
+              f"kernel A at the pallas plan's 8 layer forms (s2d, d2s; L7 "
+              f"d2s with 12 outputs), one launch each, B={batch} 768x512",
+              by="operations", counter="conv3x3_s1_int8 (pallas plan)",
+              **lib),
+        dict(entry("conv3x3_s1_int8", "conv3x3_int8.cu",
+                   "ops/pallas_conv.py:177", errs["conv3x3_s1_int8"],
+                   ms, plain_ms, bound_ms,
+                   f"sum of the default plan's 8 layer forms, one launch "
+                   f"each, B={batch} 768x512", by="operations", **lib),
+             launches=sum(a_path.values()), launches_by_path=a_path),
+        entry("conv_sparse_int8", "conv_sparse_int8.cu",
+              "ops/pallas_conv.py:290", errs["conv_sparse_int8"],
+              layers["f"], layers["f_plain"], layers["f_bound"],
+              f"sum of the 8 layers of the pallas3 plan, one launch each, "
+              f"B={batch} 768x512", by="operations", **lib),
+        entry("rans_encode_dense", "rans_encode.cu",
+              "codec/pallas_rans.py:413", errs["rans_encode_dense"],
+              h["ms"], h["plain"], h["bound"],
+              f"one launch, {bc['shape']} (int8 latent)"),
         entry("rans_encode", "rans_encode.cu", "codec/pallas_rans.py:514",
               errs["rans_encode"], bc["enc_ms"], bc["enc_plain"],
               bc["enc_bound"], f"one launch, {bc['shape']} (int8 latent)",
@@ -407,11 +578,98 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     ]
 
 
+CUDNN_FLAGS = {"enabled": True, "benchmark": False, "deterministic": False,
+               "allow_tf32": False}
+
+
+def library_layer(c: dict, ref: torch.Tensor, dtype) -> tuple:
+    """One cuDNN call of the layer (``conv2d`` k5/s2/p2, or
+    ``conv_transpose2d`` with the flipped kernel for the deconv) on
+    ``dtype`` inputs in channels_last, then the wrap epilogue: (ms,
+    max |diff| against ``ref``, the layer's exact output).  A yardstick
+    of speed only: the port never calls it."""
+    import torch.nn.functional as F
+    from simple_image_compression_network_tpu_torch.ops import conv_int
+    cl = torch.channels_last
+    x = c["x"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=cl)
+    if c["kind"] == "conv":
+        w = c["w"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=cl)
+
+        def fn():
+            return F.conv2d(x, w, stride=2, padding=2)
+    else:
+        w = (c["w"].flip(1, 2).permute(3, 0, 1, 2).to(dtype)
+             .contiguous(memory_format=cl))
+
+        def fn():
+            return F.conv_transpose2d(x, w, stride=2, padding=2,
+                                      output_padding=1)
+    with torch.no_grad(), torch.backends.cudnn.flags(**CUDNN_FLAGS):
+        ms = cuda_ms(fn, 20)
+        acc = fn().permute(0, 2, 3, 1).to(torch.float64).round()
+    out = conv_int.bias_relu_epilogue(acc.to(torch.int64), c["b"])
+    return ms, max_abs_err(out, ref)
+
+
+def time_layers(rng, batch: int, dev) -> dict:
+    """Each of the eight layers at 768x512: kernel F (the pallas3 plan)
+    beside kernel A's form of the pallas / pallas2 plans, their plain
+    versions (on the card), their bounds, and the cuDNN yardstick in bf16
+    and in float32 (no TF32).  Returns the sums per kernel."""
+    from simple_image_compression_network_tpu_torch.ops import conv_fast
+    log(f"cuDNN yardstick: cuDNN {torch.backends.cudnn.version()}, "
+        f"{CUDNN_FLAGS}, channels_last; bf16 in and out (cuDNN accumulates "
+        f"in float32, the output is rounded to bf16), and float32 in and "
+        f"out")
+    tot = {k: 0.0 for k in ("f", "f_plain", "f_bound", "a", "a_plain",
+                            "a_bound", "bf16", "fp32")}
+    lib_err = {"bf16": 0, "fp32": 0}
+    for layer in LAYERS:
+        name, kind, (gx, gy), ci, o = layer
+        c = layer_case(rng, batch, layer, dev)
+        out = run_f(c)
+        ref = out if kind == "conv" else conv_fast.depth_to_space(out)
+        k = {"f": cuda_ms(lambda: run_f(c), 20),
+             "f_plain": cuda_ms(lambda: run_f(c, plain=True), 3),
+             "a": cuda_ms(lambda: run_a(c), 20),
+             "a_plain": cuda_ms(lambda: run_a(c, plain=True), 3)}
+        xo, yo = c["xf"].shape[1:3]
+        n_out = out.numel()
+        f_ops = 2 * batch * xo * yo * o * ci * 25        # the 25 real taps
+        f_bytes = (c["xf"].numel() + c["wt"].numel() + c["bf"].numel()
+                   + n_out)
+        a_ops = 2 * batch * xo * yo * c["w3"].shape[3] * 9 * c["w3"].shape[2]
+        a_bytes = (c["xf"].numel() + c["w3"].numel() + c["bf"].numel()
+                   + n_out)
+        k["f_bound"] = max(f_ops / PEAK_INT8_OPS, f_bytes / PEAK_BYTES) * 1e3
+        k["a_bound"] = max(a_ops / PEAK_INT8_OPS, a_bytes / PEAK_BYTES) * 1e3
+        for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            k[key], err = library_layer(c, ref, dtype)
+            lib_err[key] = max(lib_err[key], err)
+            k[key + "_err"] = err
+        for key in tot:
+            tot[key] += k[key]
+        log(f"layer {name} {kind} B={batch} {tuple(c['x'].shape[1:])}->{o}: "
+            f"kernel F {k['f']:.4f} ms (plain {k['f_plain']:.3f}, bound "
+            f"{k['f_bound']:.4f}, {f_ops / k['f'] / 1e9:.1f} Gop/s of real "
+            f"taps); kernel A {k['a']:.4f} ms (plain {k['a_plain']:.3f}, "
+            f"bound {k['a_bound']:.4f}); cuDNN bf16 {k['bf16']:.4f} ms "
+            f"(max_abs_err {k['bf16_err']}), float32 {k['fp32']:.4f} ms "
+            f"(max_abs_err {k['fp32_err']})")
+    log(f"layers, sum of 8: kernel F {tot['f']:.4f} ms, kernel A (pallas "
+        f"forms) {tot['a']:.4f} ms, cuDNN bf16 {tot['bf16']:.4f} ms, "
+        f"float32 {tot['fp32']:.4f} ms")
+    tot["lib_err"] = lib_err
+    return tot
+
+
 def counted():
     """name -> the wrapper that counts that kernel's launches."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
     return {"conv3x3_s1_int8": cuda_conv.conv3x3_s1_int8,
+            "conv_sparse_int8": cuda_conv.conv_sparse_int8,
+            "rans_encode_dense": cuda_rans.encode_dense,
             "rans_encode": cuda_rans.encode_batch_compact,
             "rans_decode": cuda_rans.decode,
             "rans_encode_ctx": cuda_rans.encode_batch_compact_ctx,
@@ -436,9 +694,22 @@ def read_counts(path: str, kernels) -> dict:
     return counts
 
 
-def main_path(seed: int, batch: int, dev, card: str) -> dict:
+def read_exact(path: str, expected: dict) -> dict:
+    """As ``read_counts``, but each count must equal ``expected``."""
+    fns = counted()
+    counts = {k: fns[k].launches for k in expected}
+    plain = sum(fn.plain_runs for fn in fns.values())
+    log(f"launches on the {path} path: {counts}, plain runs: {plain}")
+    if counts != expected or plain:
+        raise AssertionError(f"the {path} path launched {counts} with "
+                             f"{plain} plain runs, expected {expected}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def main_path(seed: int, batch: int, dev, card: str) -> tuple:
     """compress_batch then decompress_batch at 768x512, checked against the
-    golden transform.  Returns the launch counts, read right after."""
+    golden transform.  Returns the launch counts, read right after, and
+    the inputs, weights, net and golden results for the later paths."""
     from simple_image_compression_network_tpu_torch.codec import int_codec
     from simple_image_compression_network_tpu_torch.models import codec_int
     from simple_image_compression_network_tpu_torch.utils import weights_io
@@ -494,7 +765,77 @@ def main_path(seed: int, batch: int, dev, card: str) -> dict:
     log(f"main path [{card}]: encode {enc_ms} ms ({mp / (t1 - t0)} MP/s), "
         f"decode {dec_ms} ms ({mp / (t2 - t1)} MP/s), peak device memory "
         f"{mem} bytes; z_hat == golden, x_hat == golden")
+    return counts, {"x": x, "params": params, "net": net, "cdfs": cdfs,
+                    "z_ref": z_ref, "x_ref": x_ref}
+
+
+def plans_path(batch: int, golden: dict, card: str) -> dict:
+    """``eight_layers_net`` under each Pallas plan and tiled under
+    ``pallas3`` at 768x512: each equal to the golden, with its launch
+    counts read right after; then each plan's transform timed beside the
+    default plan's ``IntCodecNet`` forward.  Returns the counts by path."""
+    from simple_image_compression_network_tpu_torch.models import (
+        codec_int, tiled)
+    params, x, x_ref = golden["params"], golden["x"], golden["x_ref"]
+    counts = {}
+    for name, (impl, expected) in PLANS.items():
+        reset_counts()
+        y = codec_int.eight_layers_net(params, x, impl=impl)
+        torch.cuda.synchronize()
+        counts[name] = read_exact(name, expected)
+        require_equal(f"plan {name}: eight_layers_net == golden", y, x_ref)
+    reset_counts()
+    y = tiled.eight_layers_net_tiled(params, x, TILE_X,
+                                     impl=PLANS["pallas3"][0])
+    torch.cuda.synchronize()
+    n_tiles = -(-H // TILE_X)
+    counts["tiled pallas3"] = read_exact(
+        "tiled pallas3", {"conv_sparse_int8": 8 * n_tiles,
+                          "conv3x3_s1_int8": 0})
+    require_equal(f"tiled (tile_x={TILE_X}) == untiled", y, x_ref)
+    log(f"plans pallas3, pallas, pallas2 and tiled pallas3 == golden at "
+        f"B={batch} 768x512")
+    mp = batch * H * W / 1e3        # megapixels per ms -> MP/s
+    net = golden["net"]
+    for name, (impl, _) in PLANS.items():
+        ms = cuda_ms(lambda: codec_int.eight_layers_net(params, x,
+                                                        impl=impl), 10)
+        log(f"transform [{card}]: plan {name} {ms:.4f} ms ({mp / ms:.1f} "
+            f"MP/s; weights rewritten per call, as in the JAX package)")
+    ms = cuda_ms(lambda: net(x), 10)
+    log(f"transform [{card}]: default plan, IntCodecNet forward {ms:.4f} ms "
+        f"({mp / ms:.1f} MP/s)")
     return counts
+
+
+def dense_encode_path(batch: int, golden: dict) -> dict:
+    """``encode_batch`` (kernel H) over the int8 latent of the golden
+    analysis, in the int8 codec's stream plan: words and counts equal to
+    the compact encoder's (kernel B).  Returns the counts, read right
+    after."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    from simple_image_compression_network_tpu_torch.codec.int_codec import (
+        _lane_cdf_tensor, plan_streams)
+    z = golden["z_ref"]
+    b, zx, zy, c = z.shape
+    s_img, lm = plan_streams(zx * zy)
+    n = lm * c
+    syms = z.reshape(b * s_img, zx * zy // lm // s_img, n)
+    lane_cdf = _lane_cdf_tensor(golden["cdfs"], n, z.device)
+    reset_counts()
+    words, counts = cuda_rans.encode_batch(syms, lane_cdf)
+    torch.cuda.synchronize()
+    launched = read_exact("dense-flag encode", {"rans_encode_dense": 1})
+    words_b, counts_b = cuda_rans.encode_batch_compact(syms, lane_cdf)
+    require_equal("encode_batch counts == encode_batch_compact's", counts,
+                  counts_b)
+    for j in range(b * s_img):
+        require_equal(f"encode_batch words == encode_batch_compact's, "
+                      f"stream {j}", words[j, :counts[j]] & 0xFFFF,
+                      words_b[j, :counts_b[j]].to(torch.int64) & 0xFFFF)
+    log(f"dense-flag encode of the int8 latent: {b * s_img} streams, "
+        f"{int(counts.sum())} words == kernel B's")
+    return launched
 
 
 def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
@@ -666,18 +1007,27 @@ def main() -> int:
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
         check_hyper_kernels(rng, codec, args.batch, dev, errs)
+        check_layers(rng, args.batch, dev, errs)
 
     with phase("int8 main path at 768x512"):
-        int8 = main_path(args.seed, args.batch, dev, smi)
+        int8, golden = main_path(args.seed, args.batch, dev, smi)
+    with phase("int8 transform under the Pallas plans at 768x512"):
+        plans = plans_path(args.batch, golden, smi)
+    with phase("dense-flag encode of the int8 latent"):
+        dense = dense_encode_path(args.batch, golden)
+    del golden
     with phase("hyper path at 768x512"):
         hyper = hyper_path(args.seed, args.batch, dev, smi, codec)
-    launches = {name: {path: c[name] for path, c in (("int8", int8),
-                                                     ("hyper", hyper))
+    paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper}
+    launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
+    launches["conv3x3_s1_int8 (pallas plan)"] = {
+        "pallas": plans["pallas"]["conv3x3_s1_int8"]}
 
     with phase("kernel timing at the paths' shapes"):
+        layers = time_layers(rng, args.batch, dev)
         kernels = time_kernels(rng, cdfs, codec, args.batch, dev, errs,
-                               launches)
+                               launches, layers)
 
     with phase("hyper path breakdown"):
         hyper_breakdown(args.seed, args.batch, dev, codec)

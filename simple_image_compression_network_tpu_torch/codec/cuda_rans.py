@@ -5,6 +5,10 @@ The counterpart of the JAX package's ``codec/pallas_rans.py``:
 * ``encode_batch_compact`` -> ``_encode_compact_kernel`` (kernel B; with
   ``ctx`` it hands over to ``encode_batch_compact_ctx``, kernel D, which
   replaces ``_encode_compact_ctx_kernel``);
+* ``encode_batch`` -> ``_encode_kernel`` (kernel H, launched by
+  ``encode_dense``: the dense per-step words and need flags, which
+  ``device_rans.assemble_stream`` compacts after the kernel, as the JAX
+  package does);
 * ``decode`` -> ``_decode_kernel`` (kernel C);
 * ``decode_ctx`` -> ``_decode_ctx_kernel`` (kernel E);
 * ``split_init``.
@@ -152,6 +156,64 @@ def encode_batch_compact_ctx(syms: torch.Tensor, table: torch.Tensor,
 
 encode_batch_compact_ctx.launches = 0
 encode_batch_compact_ctx.plain_runs = 0
+
+
+def encode_dense_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel H (``device_rans.encode_dense``)."""
+    emits, needs, x_fin = device_rans.encode_dense(syms, lane_cdf)
+    return emits.to(torch.int32), needs, x_fin.to(torch.int32)
+
+
+def encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel H: the reverse state loop of S streams with dense outputs.
+
+    syms: (S, t, N) int8 or int32 symbols in [0, L); lane_cdf: (N, L+1)
+    int32 CDF row per lane.  Returns (emits (S, t, N) int32, the candidate
+    word x & 0xFFFF of every step; needs (S, t, N) bool, whether it is
+    emitted; x_fin (S, N) int32 final states, u32 bits)."""
+    if syms.dim() != 3 or syms.dtype not in (torch.int8, torch.int32):
+        raise ValueError("syms must be (S, t, N) int8 or int32")
+    s, t_steps, n = syms.shape
+    _check_lane_cdf(lane_cdf, n, syms.device)
+    if syms.device.type == "cpu":
+        encode_dense.plain_runs += 1
+        return encode_dense_plain(syms, lane_cdf)
+    syms = syms.to(torch.int32)
+    _cuda_ready(syms, lane_cdf)
+    emits = torch.empty((s, t_steps, n), dtype=torch.int32,
+                        device=syms.device)
+    needs = torch.empty((s, t_steps, n), dtype=torch.bool,
+                        device=syms.device)
+    x_fin = torch.empty((s, n), dtype=torch.int32, device=syms.device)
+    lib = _build.lib()
+    with torch.cuda.device(syms.device):
+        err = lib.sicn_rans_encode_dense(
+            syms.data_ptr(), lane_cdf.data_ptr(), emits.data_ptr(),
+            needs.data_ptr(), x_fin.data_ptr(), s, t_steps, n,
+            lane_cdf.shape[1], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rans encode dense")
+    encode_dense.launches += 1
+    return emits, needs, x_fin
+
+
+encode_dense.launches = 0
+encode_dense.plain_runs = 0
+
+
+def encode_batch(syms: torch.Tensor, lane_cdf: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode S streams through kernel H, then compact its dense outputs
+    with ``device_rans.assemble_stream`` (PyTorch ops on the same device).
+
+    Returns (words (S, 2N + t*N) int64 holding u16 values, counts (S,)
+    int64), bit-identical with ``device_rans.encode`` and, over each
+    stream's count, with ``encode_batch_compact``."""
+    emits, needs, x_fin = encode_dense(syms, lane_cdf)
+    return device_rans.assemble_stream(
+        emits.to(torch.int64), needs,
+        x_fin.to(torch.int64) & 0xFFFFFFFF)
 
 
 def split_init(words: torch.Tensor, n_lanes: int) -> torch.Tensor:

@@ -50,6 +50,15 @@ def encode(syms: torch.Tensor, cdf: torch.Tensor,
     codes symbol syms[s, t, k].  words[s, :counts[s]] is stream s past its
     8-byte header, bit-identical with the JAX package's
     ``device_rans.encode`` and ``ilrans.encode``."""
+    return assemble_stream(*encode_dense(syms, cdf, ctx))
+
+
+def encode_dense(syms: torch.Tensor, cdf: torch.Tensor,
+                 ctx: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse state loop of ``encode`` alone: (emits (S, t, N) int64,
+    the candidate word x & 0xFFFF of every step; needs (S, t, N) bool,
+    whether that word is emitted; x_fin (S, N) int64 final states)."""
     s, t_steps, n = syms.shape
     cdf = cdf.to(torch.int64)
     sy = syms.to(torch.int64)
@@ -69,7 +78,7 @@ def encode(syms: torch.Tensor, cdf: torch.Tensor,
         needs[:, t] = need
         x = torch.where(need, x >> 16, x)
         x = ((x // freq) << ilrans.PREC) + x % freq + starts[:, t]
-    return assemble_stream(emits, needs, x)
+    return emits, needs, x
 
 
 def assemble_stream(emits: torch.Tensor, needs: torch.Tensor,

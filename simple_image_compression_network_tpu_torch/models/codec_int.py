@@ -8,8 +8,10 @@ The functional forms take the JAX package's parameter dictionary
 ({"w0".."w7": int8 [O,kx,ky,I], "b0".."b7": int8 [O]}, as tensors) and a
 per-layer plan; ``IntCodecNet`` is the serving module, holding the default
 plan's rewritten 3x3 weights as buffers.  On the card every layer of the
-default plan runs on kernel A (``ops/cuda_conv.py``); the plan's results
-are bit-identical to the direct forms ("lax", "dilated"), the goldens.
+default plan runs on kernel A (``ops/cuda_conv.py``); the JAX package's
+Pallas plans run on kernel A ("pallas"/"pd2s", "pallas2"/"pd2s2") or on the
+block-sparse kernel F ("pallas3"/"pd2s3").  Every plan's results are
+bit-identical to the direct forms ("lax", "dilated"), the goldens.
 """
 
 from __future__ import annotations
@@ -20,19 +22,26 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig, REFERENCE_NET
-from ..ops import conv_fast, conv_int
-from ..ops.cuda_conv import conv3x3_s1_int8
+from ..ops import conv_fast, conv_int, cuda_conv
 from ..utils import weights_io
 from ..utils.device import resolve_device
 
 _CONV_IMPL = {
     "lax": conv_int.conv2d_int8,          # direct 5x5/s2 golden
     "s2d": conv_fast.conv2d_int8_s2d,     # space-to-depth + kernel A
+    "pallas": cuda_conv.conv2d_int8_pallas,     # kernel A (TPU lane layout)
+    "pallas2": cuda_conv.conv2d_int8_pallas2,   # kernel A (TPU flat layout)
+    "pallas3": cuda_conv.conv2d_int8_pallas3,   # kernel F, 25 real taps
 }
 _DECONV_IMPL = {
     "dilated": conv_int.deconv2d_int8,    # lhs-dilated golden
     "d2s": conv_fast.deconv2d_int8_d2s,   # kernel A (4 phases) + d2s
+    "pd2s": cuda_conv.deconv2d_int8_pallas,
+    "pd2s2": cuda_conv.deconv2d_int8_pallas2,
+    "pd2s3": cuda_conv.deconv2d_int8_pallas3,   # kernel F, 9/6/6/4 taps
 }
+# Plan names of the JAX package that the port does not have yet.
+_UNPORTED = ("laxf32", "s4d", "gemm", "phased", "tapn")
 
 # The port's schedule: every layer through kernel A.  "tailfused" marks
 # the last two deconvs, fused in the phase domain.
@@ -45,6 +54,17 @@ def _plan(impl, cfg: ModelConfig):
     if len(plan) != len(cfg.layers):
         raise ValueError(f"plan has {len(plan)} entries for "
                          f"{len(cfg.layers)} layers")
+    n_analysis = len(cfg.analysis)
+    for i, name in enumerate(plan):
+        known = (_CONV_IMPL if i < n_analysis
+                 else {**_DECONV_IMPL, "tailfused": None})
+        if name in known:
+            continue
+        if name in _UNPORTED:
+            raise NotImplementedError(
+                f"plan entry {name!r} is not ported yet (ROADMAP.md, queue "
+                f"1 item 6: the remaining int8 op forms)")
+        raise ValueError(f"unknown plan entry {name!r} for layer {i}")
     return plan
 
 
@@ -128,8 +148,8 @@ class IntCodecNet(nn.Module):
         return self.w3_0.device
 
     def _layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        return conv3x3_s1_int8(h, getattr(self, f"w3_{i}"),
-                               getattr(self, f"b_{i}"))
+        return cuda_conv.conv3x3_s1_int8(h, getattr(self, f"w3_{i}"),
+                                         getattr(self, f"b_{i}"))
 
     def analysis(self, x: torch.Tensor) -> torch.Tensor:
         """uint8/int8 (B, X, Y, 3) -> int8 latent (B, X/16, Y/16, 192)."""

@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_conv import conv3x3_s1_int8
+from . import cuda_conv
 
 
-def _as_int8(w) -> torch.Tensor:
+def as_int8(w) -> torch.Tensor:
     """Tensor or numpy array -> int8 tensor."""
     return torch.as_tensor(w).to(torch.int8)
 
@@ -55,7 +55,7 @@ def depth_to_space4(y: torch.Tensor) -> torch.Tensor:
 
 def conv_weights_s2d(w) -> torch.Tensor:
     """[O, 5, 5, I] kernel -> (3, 3, 4I, O) HWIO kernel over s2d channels."""
-    w = _as_int8(w)
+    w = as_int8(w)
     o, k, _, ci = w.shape
     assert k == 5
     w3 = torch.zeros((3, 3, 4 * ci, o), dtype=torch.int8, device=w.device)
@@ -79,7 +79,7 @@ def deconv_weights_d2s(w) -> torch.Tensor:
     channels are the 4 phases (px, py, o): output phase (px, py) at
     (2i+px) reads input offset d = (px + kx - 2)/2 for kx of parity
     (2 - px) mod 2."""
-    w = _as_int8(w)
+    w = as_int8(w)
     o, k, _, ci = w.shape
     assert k == 5
     lo = 2  # k - padding - 1
@@ -104,7 +104,7 @@ def deconv_weights_s2dtail(w) -> torch.Tensor:
     the upstream deconv's phase form (input channels (rx, ry, c)) and
     emitting the 4x4 fine offsets (ax, ay, o) of this layer's output:
     kx = 4*(u-v) + 2r + 2 - a, valid when 0 <= kx < 5."""
-    w = _as_int8(w)
+    w = as_int8(w)
     o, k, _, ci = w.shape
     assert k == 5
     w3 = torch.zeros((3, 3, 4 * ci, 16 * o), dtype=torch.int8,
@@ -131,22 +131,23 @@ def deconv_weights_s2dtail(w) -> torch.Tensor:
 def tile_bias(bias, reps: int) -> torch.Tensor:
     """Per-channel bias repeated over ``reps`` phase blocks (phase-major,
     the column order of the d2s / s2dtail rewrites)."""
-    return _as_int8(bias).repeat(reps)
+    return as_int8(bias).repeat(reps)
 
 
 def conv2d_int8_s2d(x: torch.Tensor, w, bias) -> torch.Tensor:
     """5x5/s2/p2 conv layer via space-to-depth + one 3x3/s1 conv."""
     w3 = conv_weights_s2d(w).to(x.device)
-    return conv3x3_s1_int8(space_to_depth(x.to(torch.int8)).contiguous(),
-                           w3, _as_int8(bias).to(x.device))
+    return cuda_conv.conv3x3_s1_int8(
+        space_to_depth(x.to(torch.int8)).contiguous(), w3,
+        as_int8(bias).to(x.device))
 
 
 def deconv2d_int8_d2s(x: torch.Tensor, w, bias) -> torch.Tensor:
     """deconv522 layer: one 3x3/s1 conv emitting the 4 phases (epilogue in
     phase form), then depth-to-space."""
     w3 = deconv_weights_d2s(w).to(x.device)
-    y = conv3x3_s1_int8(x.to(torch.int8).contiguous(), w3,
-                        tile_bias(bias, 4).to(x.device))
+    y = cuda_conv.conv3x3_s1_int8(x.to(torch.int8).contiguous(), w3,
+                                  tile_bias(bias, 4).to(x.device))
     return depth_to_space(y)
 
 
@@ -157,9 +158,9 @@ def deconv2d_int8_tail_fused(x: torch.Tensor, w_a, b_a, w_b, b_b
     consumes it through ``deconv_weights_s2dtail`` and the inter-layer
     depth-to-space never materializes."""
     dev = x.device
-    ha = conv3x3_s1_int8(x.to(torch.int8).contiguous(),
-                         deconv_weights_d2s(w_a).to(dev),
-                         tile_bias(b_a, 4).to(dev))
-    hb = conv3x3_s1_int8(ha, deconv_weights_s2dtail(w_b).to(dev),
-                         tile_bias(b_b, 16).to(dev))
+    ha = cuda_conv.conv3x3_s1_int8(x.to(torch.int8).contiguous(),
+                                   deconv_weights_d2s(w_a).to(dev),
+                                   tile_bias(b_a, 4).to(dev))
+    hb = cuda_conv.conv3x3_s1_int8(ha, deconv_weights_s2dtail(w_b).to(dev),
+                                   tile_bias(b_b, 16).to(dev))
     return depth_to_space4(hb)

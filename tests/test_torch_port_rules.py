@@ -81,7 +81,8 @@ def test_new_modules_fall_under_the_import_probe():
     names = {m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")}
     for mod in ("codec.hyper_codec", "codec.entropy", "codec.escape",
-                "models.hyperprior", "ops.gdn", "utils.msgpack_io"):
+                "models.hyperprior", "ops.gdn", "utils.msgpack_io",
+                "models.tiled"):
         assert f"{port.__name__}.{mod}" in names
 
 

@@ -67,6 +67,47 @@ def test_encode_matches_pallas_compact(case):
                                       p_words[j, :counts[j]])
 
 
+def test_encode_batch_matches_pallas_and_compact(case):
+    """The dense-flag encoder (kernel H's plain version, then the stream
+    assembly) == the JAX package's ``encode_batch`` in interpret mode and,
+    over each stream's count, the port's compact encoder."""
+    lane_cdf, syms, _ = case
+    runs = cuda_rans.encode_dense.plain_runs
+    words, counts = cuda_rans.encode_batch(torch.from_numpy(syms),
+                                           torch.from_numpy(lane_cdf))
+    assert cuda_rans.encode_dense.plain_runs == runs + 1
+    assert cuda_rans.encode_dense.launches == 0
+    p_words, p_counts = pallas_rans.encode_batch(
+        jnp.asarray(syms.astype(np.int32)), jnp.asarray(lane_cdf),
+        interpret=True)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(p_counts))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(p_words))
+    c_words, c_counts = _port_encode(lane_cdf, syms)
+    np.testing.assert_array_equal(counts.numpy(), c_counts)
+    for j in range(len(c_counts)):
+        np.testing.assert_array_equal(words.numpy()[j, :c_counts[j]],
+                                      c_words[j, :c_counts[j]])
+    emits, needs, x_fin = cuda_rans.encode_dense(
+        torch.from_numpy(syms.astype(np.int32)), torch.from_numpy(lane_cdf))
+    assert emits.dtype == x_fin.dtype == torch.int32
+    assert needs.dtype == torch.bool and needs.shape == syms.shape
+    np.testing.assert_array_equal(
+        x_fin.numpy().view(np.uint32),
+        (words.numpy()[:, 0:2 * lane_cdf.shape[0]:2] << 16)
+        | words.numpy()[:, 1:2 * lane_cdf.shape[0]:2])
+
+
+def test_encode_batch_rejects_bad_input(case):
+    lane_cdf, syms, _ = case
+    lc = torch.from_numpy(lane_cdf)
+    with pytest.raises(ValueError):
+        cuda_rans.encode_batch(torch.from_numpy(syms).to(torch.int64), lc)
+    with pytest.raises(ValueError):
+        cuda_rans.encode_batch(torch.from_numpy(syms), lc[:5])
+    with pytest.raises(ValueError):
+        cuda_rans.encode_batch(torch.from_numpy(syms[0]), lc)
+
+
 def _word_matrix(streams):
     off = ilrans.unpack_header(streams[0])[3]
     counts = np.asarray([(len(b) - off) // 2 for b in streams], np.int32)
