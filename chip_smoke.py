@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--seed N] [--batch B]
 
 Builds the port's CUDA kernels from ``simple_image_compression_network_tpu_torch/
-csrc`` (one nvcc call), holds each kernel bit-exactly against its plain
-PyTorch version (kernel F and kernel A's forms at the eight layers' shapes,
-and the halo modes), then drives the port's paths at full width on B
-random-seeded 768x512 images:
+csrc`` (one nvcc call), prints each conv kernel's registers, shared memory
+and spills (ptxas) and its tensor-core and __dp4a instruction counts (SASS,
+cuobjdump), holds each kernel bit-exactly against its plain PyTorch version
+(kernel F and kernel A's forms at the eight layers' shapes, the halo modes,
+and edge shapes off the tiles and the MMA granules), then drives the port's
+paths at full width on B random-seeded 768x512 images:
 
 * the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
   reference weights and the static latent CDFs, checked against the direct
@@ -23,10 +25,16 @@ random-seeded 768x512 images:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
-paths' shapes beside its plain version, its bound and, for the convs, one
-cuDNN call of the same layer (a yardstick the port never calls), and the
-hyper path's time is broken down by stage (host clock) and by device
-kernel (torch.profiler).
+paths' shapes beside its plain version and its bound (the conv kernels
+with their weights packed ahead, so that a call launches the kernel alone,
+by CUDA events around calls queued behind a spin kernel, since their
+wrappers' host time can exceed the kernel's; the rANS kernels by CUDA
+events) and, for the convs, two
+yardsticks the port never calls: one cuDNN call of the same layer (float32
+without TF32, the same function; bf16, not the same function) and
+``torch._int_mm`` on the layer's implicit-GEMM shape.  The hyper path's
+time is broken down by stage (host clock) and by device kernel
+(torch.profiler).
 
 Output: one line per phase with its seconds; then the card's name and
 power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line, and as the
@@ -42,6 +50,7 @@ import contextlib
 import faulthandler
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +125,90 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn(), a call that launches one kernel, over
+    iters calls, after one warm-up call: CUDA events around calls queued
+    behind a spin kernel (``torch.cuda._sleep``), so the host's time to
+    queue them stays out of the window.  The spin must outlast the
+    queueing (the start event not yet reached when the last call is
+    queued); else it is taken again 4 times longer."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError("the spin kernel never outlasted the host's "
+                         "queueing of the timed calls")
+
+
+def int_mm_ms(m: int, k: int, n: int, dev) -> float:
+    """``torch._int_mm`` (int8 in, int32 out) on an (m, k) x (k, n) GEMM,
+    k and n rounded up to its granules: a yardstick of the tensor cores'
+    reach at a conv's implicit-GEMM shape, timed only."""
+    k, n = -(-k // 32) * 32, -(-n // 8) * 8
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev)
+    return cuda_ms(lambda: torch._int_mm(a, b), 20)
+
+
+CONV_KERNEL = "conv_taps_mma_kernel"    # the tile of kernels A and F
+
+
+def report_conv_build(lib_path: str, build_log: str) -> None:
+    """Each kernel's ptxas lines (registers, static shared memory, spills)
+    and the conv kernels' SASS: each must hold int8 tensor-core
+    instructions (IMMA or IGMMA) and no IDP4A."""
+    name = None
+    for line in build_log.splitlines():
+        found = re.search(r"entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            tile = re.search(CONV_KERNEL + r"ILi(\d+)ELi(\d+)ELi(\d+)E",
+                             name)
+            src = "conv3x3_int8" if "conv3x3" in name else \
+                "conv_sparse_int8"
+            short = (f"{CONV_KERNEL}<WM={tile.group(1)}, MF={tile.group(2)}, "
+                     f"NF={tile.group(3)}> in {src}.cu"
+                     if tile else re.search(r"[a-z][a-z_]*kernel", name)[0])
+            log(f"  ptxas {short}: {line.split(':', 1)[-1].strip()}")
+    from simple_image_compression_network_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        log("SASS: cuobjdump not in the toolkit, instruction counts not "
+            "measured")
+        return
+    res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120, check=True)
+    n_conv = 0
+    for chunk in res.stdout.split("Function : ")[1:]:
+        fn = chunk.split("\n", 1)[0].strip()
+        if CONV_KERNEL not in fn:
+            continue
+        n_conv += 1
+        counts = {op: len(re.findall(r"\b" + op + r"\b", chunk))
+                  for op in ("IMMA", "IGMMA", "IDP4A")}
+        log(f"  SASS {fn[:72]}...: {counts}")
+        if counts["IMMA"] + counts["IGMMA"] == 0 or counts["IDP4A"]:
+            raise AssertionError(f"{fn}: no int8 tensor-core instruction, "
+                                 f"or IDP4A left")
+    if not n_conv:
+        raise AssertionError("no conv kernel in the library's SASS")
+    log(f"SASS: {n_conv} conv kernel instances, each with int8 tensor-core "
+        f"instructions and no IDP4A")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -335,6 +428,20 @@ def run_a(c: dict, plain: bool = False) -> torch.Tensor:
     return fn(c["xf"], c["w3"], c["bf"], **c["valid"])
 
 
+def prepacked(c: dict) -> tuple:
+    """Calls of kernels F and A on the case with their weights packed
+    ahead: each launches its kernel and nothing else, for ``kernel_ms``."""
+    from simple_image_compression_network_tpu_torch.ops import cuda_conv
+    pk = cuda_conv.pack_taps(c["wt"], c["taps"], c["nb"], c["xf"].shape[3])
+    wp = cuda_conv.pack_conv3x3(c["w3"])
+    xv, yv = c["valid"]["x_valid"], c["valid"]["y_valid"]
+    return (lambda: cuda_conv._conv_sparse(c["xf"], c["wt"], c["bf"],
+                                           c["taps"], c["nb"], True, xv, yv,
+                                           pk),
+            lambda: cuda_conv._conv3x3(c["xf"], c["w3"], c["bf"], True, xv,
+                                       yv, wp))
+
+
 def check_layers(rng, batch: int, dev, errs: dict) -> None:
     """Kernel F (conv and deconv forms) and kernel A's Pallas-plan forms at
     the eight layers' shapes, each against its plain version on the card,
@@ -361,6 +468,62 @@ def check_layers(rng, batch: int, dev, errs: dict) -> None:
                     run_f(c, plain=True)))
     log("kernel F: halo modes x_valid, y_valid, both at L2 (conv) and L5 "
         "(deconv) bit-exact")
+
+
+# Edge shapes of kernel A: (B, X, Y, C, N, x_valid, y_valid), off the
+# 16-column and 8 to 16-row pixel tiles, off the 32-byte K granule (C = 5,
+# 31, 40, 48, 96: the im2col, byte-staged and padded paths) and the 8-channel
+# N granule, on every block tile.
+A_EDGES = [(1, 7, 35, 40, 70, False, False), (3, 90, 51, 48, 56, False, True),
+           (3, 11, 17, 12, 200, False, False), (1, 5, 3, 31, 9, True, False),
+           (3, 33, 47, 64, 16, False, False), (3, 72, 50, 96, 130, True, True),
+           (1, 10, 20, 128, 48, True, False), (3, 9, 13, 5, 20, False, False),
+           (1, 48, 96, 64, 192, False, False)]
+# Edge layers of kernel F: (B, kind, input grid, ci, o, halo), on the s2d
+# conv (input blocks of ci channels, im2col below 32) and the d2s deconv
+# (4 output blocks of o channels, merged below 8).
+F_EDGES = [(3, "conv", (18, 26), 3, 20, (False, False)),
+           (1, "conv", (14, 30), 40, 70, (True, False)),
+           (1, "deconv", (9, 13), 40, 3, (False, False)),
+           (3, "deconv", (7, 9), 5, 3, (True, True)),
+           (3, "deconv", (5, 17), 48, 10, (False, True))]
+
+
+def check_edges(rng, batch: int, dev, errs: dict) -> None:
+    """Kernels A and F against their plain versions at the edge shapes,
+    and A's halo modes at two more layer forms (L0's im2col form, L7's
+    48 outputs) at their 768x512 grids."""
+    from simple_image_compression_network_tpu_torch.ops import cuda_conv
+    for b, x, y, c, n, xv, yv in A_EDGES:
+        xs, w3, bias = conv_inputs(rng, b, x, y, c, n, dev)
+        errs["conv3x3_s1_int8"] = max(errs["conv3x3_s1_int8"], require_equal(
+            f"kernel A edge {b}x{x}x{y}x{c}->{n} valid=({xv}, {yv})",
+            cuda_conv.conv3x3_s1_int8(xs, w3, bias, x_valid=xv, y_valid=yv),
+            cuda_conv.conv3x3_s1_int8_plain(xs, w3, bias, x_valid=xv,
+                                            y_valid=yv)))
+    log(f"kernel A: {len(A_EDGES)} edge shapes (B = 1 and 3, extents off "
+        f"the tiles, C and N off the MMA granules) bit-exact")
+    for form in (0, 7):
+        (name, c, n), (gx, gy) = LAYER_FORMS[form], FORM_GRID[form]
+        for xv, yv in ((True, False), (False, True), (True, True)):
+            xs, w3, bias = conv_inputs(rng, batch, gx + 2 * xv, gy + 2 * yv,
+                                       c, n, dev)
+            errs["conv3x3_s1_int8"] = max(
+                errs["conv3x3_s1_int8"], require_equal(
+                    f"kernel A {name} halo x_valid={xv} y_valid={yv}",
+                    cuda_conv.conv3x3_s1_int8(xs, w3, bias, x_valid=xv,
+                                              y_valid=yv),
+                    cuda_conv.conv3x3_s1_int8_plain(
+                        xs, w3, bias, x_valid=xv, y_valid=yv)))
+        log(f"kernel A: halo modes at the {name} form "
+            f"{batch}x{gx}x{gy}x{c}->{n} bit-exact")
+    for b, kind, grid, ci, o, halo in F_EDGES:
+        c = layer_case(rng, b, ("edge", kind, grid, ci, o), dev, halo)
+        errs["conv_sparse_int8"] = max(errs["conv_sparse_int8"], require_equal(
+            f"kernel F edge {kind} B={b} {tuple(c['xf'].shape)} o={o} "
+            f"halo {halo}", run_f(c), run_f(c, plain=True)))
+    log(f"kernel F: {len(F_EDGES)} edge layers (im2col and merged blocks, "
+        f"B = 1 and 3, halo modes) bit-exact")
 
 
 def check_hyper_kernels(rng, codec, batch: int, dev, errs: dict) -> None:
@@ -443,22 +606,37 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
         _lane_cdf, plan_streams)
     from simple_image_compression_network_tpu_torch.ops import cuda_conv
 
-    ms = plain_ms = bound_ms = 0.0
+    ms = plain_ms = bound_ms = wrap_ms = packed_ms = mm_ms = 0.0
     for (name, c, n), (gx, gy) in zip(LAYER_FORMS, FORM_GRID):
         xs, w3, bias = conv_inputs(rng, batch, gx, gy, c, n, dev)
         got = cuda_conv.conv3x3_s1_int8(xs, w3, bias)
         ref = cuda_conv.conv3x3_s1_int8_plain(xs, w3, bias)
         errs["conv3x3_s1_int8"] = max(errs["conv3x3_s1_int8"], require_equal(
             f"kernel A {name} full shape", got, ref))
-        k = cuda_ms(lambda: cuda_conv.conv3x3_s1_int8(xs, w3, bias), 20)
+        wp = cuda_conv.pack_conv3x3(w3)
+        k = kernel_ms(lambda: cuda_conv._conv3x3(xs, w3, bias, True, False,
+                                                 False, wp))
+        wrap = cuda_ms(lambda: cuda_conv.conv3x3_s1_int8(xs, w3, bias), 20)
+        packed = cuda_ms(lambda: cuda_conv._conv3x3(
+            xs, w3, bias, True, False, False, wp), 20)
         p = cuda_ms(lambda: cuda_conv.conv3x3_s1_int8_plain(xs, w3, bias), 3)
+        mm = int_mm_ms(batch * gx * gy, 9 * c, n, dev)
         ops = 2 * batch * gx * gy * n * 9 * c
         nbytes = xs.numel() + w3.numel() + n + got.numel()
         bnd = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
-        log(f"kernel A {name} {batch}x{gx}x{gy}x{c}->{n}: {k:.4f} ms, "
-            f"plain {p:.3f} ms, bound {bnd:.4f} ms "
-            f"({ops / k / 1e9:.1f} Gop/s)")
+        log(f"kernel A {name} {batch}x{gx}x{gy}x{c}->{n}: {k:.4f} ms on the "
+            f"card ({bnd / k:.1%} of its bound {bnd:.4f} ms, "
+            f"{ops / k / 1e9:.1f} TOP/s); the wrapper {wrap:.4f} ms a call "
+            f"packing the weights, {packed:.4f} ms prepacked (CUDA events, "
+            f"host included); plain {p:.3f} ms; torch._int_mm "
+            f"({batch * gx * gy}, {-(-9 * c // 32) * 32}, {n}) {mm:.4f} ms")
         ms, plain_ms, bound_ms = ms + k, plain_ms + p, bound_ms + bnd
+        wrap_ms, packed_ms, mm_ms = wrap_ms + wrap, packed_ms + packed, \
+            mm_ms + mm
+    log(f"kernel A, the default plan's 8 forms: {ms:.4f} ms on the card "
+        f"({bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms); wrappers "
+        f"{wrap_ms:.4f} ms packing per call, {packed_ms:.4f} ms prepacked; "
+        f"torch._int_mm at the same GEMM shapes {mm_ms:.4f} ms")
 
     # B, C at the int8 latent's shapes (S = 8B, t = 96, N = 384)
     zx, zy = H // 16, W // 16
@@ -523,13 +701,17 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                 "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": by,
                 "library_ms": None, "unit": unit, **extra}
 
-    # the cuDNN yardstick of the eight layers (bf16; float32 beside it)
-    lib = {"library_ms": layers["bf16"],
-           "library_max_abs_err": layers["lib_err"]["bf16"],
-           "library_fp32_ms": layers["fp32"],
-           "library_fp32_max_abs_err": layers["lib_err"]["fp32"],
+    # the cuDNN yardstick of the eight layers: float32 without TF32 is the
+    # same function; bf16 is not (a speed aim only)
+    lib = {"library_ms": layers["fp32"],
+           "library_max_abs_err": layers["lib_err"]["fp32"],
            "library": "torch.nn.functional.conv2d / conv_transpose2d, cuDNN, "
-                      "channels_last, sum of the 8 layers"}
+                      "float32 without TF32, channels_last, sum of the 8 "
+                      "layers",
+           "library_bf16_ms": layers["bf16"],
+           "library_bf16_max_abs_err": layers["lib_err"]["bf16"],
+           "library_bf16": "the same call in bf16: not the same function, "
+                           "a speed aim only"}
 
     def z_shapes(r, kind):
         return {"shape": r["shape"], "ms": r[f"{kind}_ms"],
@@ -541,20 +723,27 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
               "ops/pallas_conv.py:42", errs["conv3x3_s1_int8 (pallas plan)"],
               layers["a"], layers["a_plain"], layers["a_bound"],
               f"kernel A at the pallas plan's 8 layer forms (s2d, d2s; L7 "
-              f"d2s with 12 outputs), one launch each, B={batch} 768x512",
-              by="operations", counter="conv3x3_s1_int8 (pallas plan)",
-              **lib),
+              f"d2s with 12 outputs), one launch each, B={batch} 768x512; "
+              f"ms on the card (CUDA events behind a spin kernel)",
+              by="operations",
+              counter="conv3x3_s1_int8 (pallas plan)",
+              wrapper_ms=layers["a_wrapper"], int_mm_ms=layers["a_mm"], **lib),
         dict(entry("conv3x3_s1_int8", "conv3x3_int8.cu",
                    "ops/pallas_conv.py:177", errs["conv3x3_s1_int8"],
                    ms, plain_ms, bound_ms,
                    f"sum of the default plan's 8 layer forms, one launch "
-                   f"each, B={batch} 768x512", by="operations", **lib),
+                   f"each, B={batch} 768x512; ms on the card "
+                   f"(CUDA events behind a spin kernel)", by="operations",
+                   wrapper_ms=wrap_ms,
+                   prepacked_wrapper_ms=packed_ms, int_mm_ms=mm_ms, **lib),
              launches=sum(a_path.values()), launches_by_path=a_path),
         entry("conv_sparse_int8", "conv_sparse_int8.cu",
               "ops/pallas_conv.py:290", errs["conv_sparse_int8"],
               layers["f"], layers["f_plain"], layers["f_bound"],
               f"sum of the 8 layers of the pallas3 plan, one launch each, "
-              f"B={batch} 768x512", by="operations", **lib),
+              f"B={batch} 768x512; ms on the card (CUDA events behind "
+              f"a spin kernel)",
+              by="operations", wrapper_ms=layers["f_wrapper"], **lib),
         entry("rans_encode_dense", "rans_encode.cu",
               "codec/pallas_rans.py:413", errs["rans_encode_dense"],
               h["ms"], h["plain"], h["bound"],
@@ -621,19 +810,27 @@ def time_layers(rng, batch: int, dev) -> dict:
         f"{CUDNN_FLAGS}, channels_last; bf16 in and out (cuDNN accumulates "
         f"in float32, the output is rounded to bf16), and float32 in and "
         f"out")
-    tot = {k: 0.0 for k in ("f", "f_plain", "f_bound", "a", "a_plain",
-                            "a_bound", "bf16", "fp32")}
+    tot = {k: 0.0 for k in ("f", "f_plain", "f_bound", "f_wrapper", "a",
+                            "a_plain", "a_bound", "a_wrapper", "a_mm",
+                            "bf16", "fp32")}
     lib_err = {"bf16": 0, "fp32": 0}
     for layer in LAYERS:
         name, kind, (gx, gy), ci, o = layer
         c = layer_case(rng, batch, layer, dev)
         out = run_f(c)
         ref = out if kind == "conv" else conv_fast.depth_to_space(out)
-        k = {"f": cuda_ms(lambda: run_f(c), 20),
+        f_kernel, a_kernel = prepacked(c)
+        require_equal(f"kernel F prepacked {name}", f_kernel(), out)
+        require_equal(f"kernel A prepacked {name}", a_kernel(), run_a(c))
+        k = {"f": kernel_ms(f_kernel),
+             "f_wrapper": cuda_ms(lambda: run_f(c), 20),
              "f_plain": cuda_ms(lambda: run_f(c, plain=True), 3),
-             "a": cuda_ms(lambda: run_a(c), 20),
+             "a": kernel_ms(a_kernel),
+             "a_wrapper": cuda_ms(lambda: run_a(c), 20),
              "a_plain": cuda_ms(lambda: run_a(c, plain=True), 3)}
         xo, yo = c["xf"].shape[1:3]
+        k["a_mm"] = int_mm_ms(batch * xo * yo, 9 * c["w3"].shape[2],
+                              c["w3"].shape[3], dev)
         n_out = out.numel()
         f_ops = 2 * batch * xo * yo * o * ci * 25        # the 25 real taps
         f_bytes = (c["xf"].numel() + c["wt"].numel() + c["bf"].numel()
@@ -650,15 +847,21 @@ def time_layers(rng, batch: int, dev) -> dict:
         for key in tot:
             tot[key] += k[key]
         log(f"layer {name} {kind} B={batch} {tuple(c['x'].shape[1:])}->{o}: "
-            f"kernel F {k['f']:.4f} ms (plain {k['f_plain']:.3f}, bound "
-            f"{k['f_bound']:.4f}, {f_ops / k['f'] / 1e9:.1f} Gop/s of real "
-            f"taps); kernel A {k['a']:.4f} ms (plain {k['a_plain']:.3f}, "
-            f"bound {k['a_bound']:.4f}); cuDNN bf16 {k['bf16']:.4f} ms "
-            f"(max_abs_err {k['bf16_err']}), float32 {k['fp32']:.4f} ms "
-            f"(max_abs_err {k['fp32_err']})")
-    log(f"layers, sum of 8: kernel F {tot['f']:.4f} ms, kernel A (pallas "
-        f"forms) {tot['a']:.4f} ms, cuDNN bf16 {tot['bf16']:.4f} ms, "
-        f"float32 {tot['fp32']:.4f} ms")
+            f"kernel F {k['f']:.4f} ms ({k['f_bound'] / k['f']:.1%} of its "
+            f"bound {k['f_bound']:.4f}, {f_ops / k['f'] / 1e9:.1f} TOP/s of "
+            f"real taps; wrapper {k['f_wrapper']:.4f}, plain "
+            f"{k['f_plain']:.3f}); kernel A {k['a']:.4f} ms "
+            f"({k['a_bound'] / k['a']:.1%} of its bound {k['a_bound']:.4f}; "
+            f"wrapper {k['a_wrapper']:.4f}, plain {k['a_plain']:.3f}); "
+            f"cuDNN float32 {k['fp32']:.4f} ms (max_abs_err "
+            f"{k['fp32_err']}), bf16 {k['bf16']:.4f} ms (max_abs_err "
+            f"{k['bf16_err']}, not the same function); torch._int_mm at A's "
+            f"GEMM shape {k['a_mm']:.4f} ms")
+    log(f"layers, sum of 8: kernel F {tot['f']:.4f} ms (wrappers "
+        f"{tot['f_wrapper']:.4f}), kernel A (pallas forms) {tot['a']:.4f} ms "
+        f"(wrappers {tot['a_wrapper']:.4f}), cuDNN float32 "
+        f"{tot['fp32']:.4f} ms, bf16 {tot['bf16']:.4f} ms, torch._int_mm "
+        f"{tot['a_mm']:.4f} ms")
     tot["lib_err"] = lib_err
     return tot
 
@@ -986,9 +1189,7 @@ def main() -> int:
         path, build_log = _build.build()
         _build.lib()
         log(f"nvcc build: {time.perf_counter() - t0:.1f} s -> {path}")
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+        report_conv_build(path, build_log)
 
     from simple_image_compression_network_tpu_torch.utils import weights_io
     cdfs = weights_io.load_static_cdfs(
@@ -1008,6 +1209,7 @@ def main() -> int:
         errs = check_kernels(rng, cdfs, dev)
         check_hyper_kernels(rng, codec, args.batch, dev, errs)
         check_layers(rng, args.batch, dev, errs)
+        check_edges(rng, args.batch, dev, errs)
 
     with phase("int8 main path at 768x512"):
         int8, golden = main_path(args.seed, args.batch, dev, smi)

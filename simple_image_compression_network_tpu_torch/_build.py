@@ -33,9 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p).
 _SIGNATURES = {
     "sicn_conv3x3_s1_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P],
+                             _I, _I, _I, _P],
     "sicn_conv_sparse_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sicn_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sicn_rans_encode_ctx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -17,20 +17,25 @@
 //
 // Bound on an H100 SXM: compute.  At 768x512 the 25 real products are
 // 28.9 GMAC per image in all eight layers, against 45.75 GMAC for kernel
-// A's dense forms of the default plan.  This first version runs them on
-// __dp4a like kernel A, one group of taps per (output block, input block)
-// pair, with each output phase of the deconv in its own blocks; wgmma, TMA
-// and balancing the 9/6/6/4 phases are for a later version.
+// A's dense forms of the default plan.  The kernel is the tensor-core
+// implicit GEMM of conv_taps.cuh (mma.sync m16n8k32, cp.async ring), with
+// two thin cases chosen by the wrapper from the shapes: input blocks under
+// 32 channels (L0's 3-channel phase blocks) run as one im2col K of 75
+// bytes, and output blocks under 8 channels (L7's 4 phases of 3) arrive
+// merged into one block of 12 columns over the 9 tap positions, so the
+// halo is staged once for all four phases.
 
 #include "conv_taps.cuh"
 
 // taps: n entries of 5 ints (row, col, cblk, oblk, widx), host memory.
-extern "C" int sicn_conv_sparse_int8(const void* x, const void* w,
+// wp: the packed weights (T slices of (bn, kw), conv_taps.cuh).
+extern "C" int sicn_conv_sparse_int8(const void* x, const void* wp,
                                      const void* bias, void* out,
                                      const int* taps, int n, int B, int X,
                                      int Y, int C, int kb, int bn, int nb,
-                                     int T, int relu, int x_valid,
-                                     int y_valid, void* stream) {
+                                     int T, int kw, int im2col, int tile,
+                                     int relu, int x_valid, int y_valid,
+                                     void* stream) {
   if (taps == nullptr || n < 0 || n > kMaxTaps)
     return (int)cudaErrorInvalidValue;
   ConvShape sh;
@@ -45,6 +50,8 @@ extern "C" int sicn_conv_sparse_int8(const void* x, const void* w,
   sh.bn = bn;
   sh.nb = nb;
   sh.T = T;
+  sh.kw = kw;
+  sh.im2col = im2col;
   TapTable tab;
   tab.n = n;
   for (int i = 0; i < n; ++i) {
@@ -54,5 +61,5 @@ extern "C" int sicn_conv_sparse_int8(const void* x, const void* w,
     tab.oblk[i] = taps[5 * i + 3];
     tab.widx[i] = taps[5 * i + 4];
   }
-  return launch_conv_taps(x, w, bias, out, B, sh, tab, relu, stream);
+  return launch_conv_taps(x, wp, bias, out, B, sh, tab, tile, relu, stream);
 }

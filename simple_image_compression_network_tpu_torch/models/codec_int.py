@@ -116,7 +116,9 @@ class IntCodecNet(nn.Module):
 
     Buffers ``w3_i`` (3, 3, C, N) int8 HWIO and ``b_i`` (N,) int8 hold layer
     i's kernel-A weights and phase-tiled bias: s2d for layers 0-3, d2s for
-    4-6, s2dtail for 7 (consuming layer 6's phase form).  Fully
+    4-6, s2dtail for 7 (consuming layer 6's phase form); ``wp_i`` holds
+    them packed for the kernel (``cuda_conv.pack_conv3x3``, not saved in
+    the state dict), so that serving packs nothing per call.  Fully
     convolutional: any input whose sides are multiples of 16 works."""
 
     def __init__(self, params: Dict[str, torch.Tensor], device=None):
@@ -134,6 +136,8 @@ class IntCodecNet(nn.Module):
 
     def _add(self, i: int, w3: torch.Tensor, bias: torch.Tensor, dev):
         self.register_buffer(f"w3_{i}", w3.contiguous().to(dev))
+        self.register_buffer(f"wp_{i}", cuda_conv.pack_conv3x3(
+            getattr(self, f"w3_{i}")), persistent=False)
         self.register_buffer(f"b_{i}", bias.to(torch.int8).contiguous()
                              .to(dev))
 
@@ -148,8 +152,9 @@ class IntCodecNet(nn.Module):
         return self.w3_0.device
 
     def _layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        return cuda_conv.conv3x3_s1_int8(h, getattr(self, f"w3_{i}"),
-                                         getattr(self, f"b_{i}"))
+        return cuda_conv._conv3x3(h, getattr(self, f"w3_{i}"),
+                                  getattr(self, f"b_{i}"), True, False,
+                                  False, getattr(self, f"wp_{i}"))
 
     def analysis(self, x: torch.Tensor) -> torch.Tensor:
         """uint8/int8 (B, X, Y, 3) -> int8 latent (B, X/16, Y/16, 192)."""
