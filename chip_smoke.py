@@ -8,7 +8,9 @@ csrc`` (one nvcc call), prints each conv kernel's registers, shared memory
 and spills (ptxas) and its tensor-core and __dp4a instruction counts (SASS,
 cuobjdump), holds each kernel bit-exactly against its plain PyTorch version
 (kernel F and kernel A's forms at the eight layers' shapes, the halo modes,
-and edge shapes off the tiles and the MMA granules), then drives the port's
+and edge shapes off the tiles and the MMA granules; the rANS kernels at the
+paths' shapes and, for the decoders C and E, at their edges, whole and
+truncated, on both instances), then drives the port's
 paths at full width on B random-seeded 768x512 images:
 
 * the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
@@ -26,10 +28,11 @@ paths at full width on B random-seeded 768x512 images:
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
 paths' shapes beside its plain version and its bound (the conv kernels
-with their weights packed ahead, so that a call launches the kernel alone,
-by CUDA events around calls queued behind a spin kernel, since their
-wrappers' host time can exceed the kernel's; the rANS kernels by CUDA
-events) and, for the convs, two
+with their weights packed ahead and the decode kernels C and E with their
+table layout and outputs made ahead, so that a call launches the kernel
+alone, by CUDA events around calls queued behind a spin kernel, since
+their wrappers' host time can exceed the kernel's; the rANS encoders by
+CUDA events around their wrappers) and, for the convs, two
 yardsticks the port never calls: one cuDNN call of the same layer (float32
 without TF32, the same function; bf16, not the same function) and
 ``torch._int_mm`` on the layer's implicit-GEMM shape.  The hyper path's
@@ -167,6 +170,16 @@ def int_mm_ms(m: int, k: int, n: int, dev) -> float:
 CONV_KERNEL = "conv_taps_mma_kernel"    # the tile of kernels A and F
 
 
+def decode_name(mangled: str) -> str:
+    """'rans_decode_kernel<C|E, staged|global>' for an instance of the
+    decode kernels' template, else ''."""
+    m = re.search(r"rans_decode_kernelI([ai])Lb([01])ELb([01])E", mangled)
+    if not m:
+        return ""
+    return (f"rans_decode_kernel<{'E' if m.group(2) == '1' else 'C'}, "
+            f"{'staged' if m.group(3) == '1' else 'global'}>")
+
+
 def report_conv_build(lib_path: str, build_log: str) -> None:
     """Each kernel's ptxas lines (registers, static shared memory, spills)
     and the conv kernels' SASS: each must hold int8 tensor-core
@@ -183,7 +196,8 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
                 "conv_sparse_int8"
             short = (f"{CONV_KERNEL}<WM={tile.group(1)}, MF={tile.group(2)}, "
                      f"NF={tile.group(3)}> in {src}.cu"
-                     if tile else re.search(r"[a-z][a-z_]*kernel", name)[0])
+                     if tile else decode_name(name) or
+                     re.search(r"[a-z][a-z_]*kernel", name)[0])
             log(f"  ptxas {short}: {line.split(':', 1)[-1].strip()}")
     from simple_image_compression_network_tpu_torch import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -193,9 +207,21 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         return
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120, check=True)
-    n_conv = 0
+    n_conv = n_dec = 0
     for chunk in res.stdout.split("Function : ")[1:]:
         fn = chunk.split("\n", 1)[0].strip()
+        if decode_name(fn):
+            # one barrier before the steps and one a step; the staged
+            # instances read the table and the ring in shared memory only
+            n_dec += 1
+            counts = {op: len(re.findall(r"\b" + op + r"\b", chunk))
+                      for op in ("BAR", "LDS", "LD", "LDG", "REDUX")}
+            log(f"  SASS {decode_name(fn)}: {counts}")
+            if counts["BAR"] != 2 or ("staged" in decode_name(fn) and (
+                    counts["LD"] or not counts["LDS"])):
+                raise AssertionError(f"{fn}: not one barrier a step, or "
+                                     f"generic loads in a staged instance")
+            continue
         if CONV_KERNEL not in fn:
             continue
         n_conv += 1
@@ -205,10 +231,12 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         if counts["IMMA"] + counts["IGMMA"] == 0 or counts["IDP4A"]:
             raise AssertionError(f"{fn}: no int8 tensor-core instruction, "
                                  f"or IDP4A left")
-    if not n_conv:
-        raise AssertionError("no conv kernel in the library's SASS")
+    if not n_conv or n_dec != 4:
+        raise AssertionError(f"{n_conv} conv and {n_dec} decode kernel "
+                             f"instances in the library's SASS")
     log(f"SASS: {n_conv} conv kernel instances, each with int8 tensor-core "
-        f"instructions and no IDP4A")
+        f"instructions and no IDP4A; {n_dec} decode kernel instances, each "
+        f"with one barrier a step")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -278,13 +306,31 @@ def ctx_symbols(rng, table: np.ndarray, s: int, t: int, n: int,
     return syms, ctx
 
 
+def decode_instance(n: int, l1: int, n_rows=None) -> str:
+    """The instance of kernel C (``n_rows`` None) or E at this shape."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    return ("staged" if cuda_rans.decode_staged_fits(n, l1, n_rows)
+            else "global")
+
+
+def decode_cuts(n: int, width: int) -> list:
+    """Buffer lengths the decoders are held at beside the whole buffer:
+    cut inside the ring's first fill (2N + 5 words), inside its first
+    refill, and at a length that is no multiple of the ring."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    npad = -(-n // 32) * 32
+    ring = cuda_rans._ring_words(npad)
+    return [None] + [c for c in (2 * n + 5, 2 * n + 2 * npad + 7,
+                                 3 * ring + 5) if c < width]
+
+
 def check_rans(tag: str, enc, dec, enc_plain, dec_plain, syms, tables,
                t: int, n: int, errs: dict, keys) -> torch.Tensor:
     """Encode with a kernel and its plain version, decode the kernel's words
-    with the other kernel and its plain version (whole and truncated), all
-    bit-exact; the round trip must give back the symbols.  ``tables`` are
-    the table arguments after syms (encode) or x0 (decode).  Returns the
-    word counts."""
+    with the other kernel and its plain version (whole and truncated at
+    ``decode_cuts``), all bit-exact; the round trip must give back the
+    symbols.  ``tables`` are the table arguments after syms (encode) or x0
+    (decode).  Returns the word counts."""
     k_enc, k_dec = keys
     words, counts = enc(syms, *tables)
     ref_w, ref_c = enc_plain(syms.cpu(), *[a.cpu() for a in tables])
@@ -295,14 +341,13 @@ def check_rans(tag: str, enc, dec, enc_plain, dec_plain, syms, tables,
                       ref_w.to(torch.int32) & 0xFFFF))
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     x0 = cuda_rans.split_init(words, n)
-    for cut in (None, 2 * n + 5):
+    for cut in decode_cuts(n, words.shape[1]):
         w = words if cut is None else words[:, :cut].contiguous()
         got = dec(w, x0, *tables, t)
         ref = dec_plain(w.cpu(), x0.cpu(), *[a.cpu() for a in tables], t)
         for what, g, r in zip(("syms", "consumed", "x_fin"), got, ref):
             errs[k_dec] = max(errs[k_dec], require_equal(
-                f"{tag} decode {what}{'' if cut is None else ' truncated'}",
-                g, r))
+                f"{tag} decode {what} cap={w.shape[1]}", g, r))
         if cut is None:
             out, cons, xfin = got
             require_equal(f"{tag} round trip", out.to(torch.int32),
@@ -311,6 +356,61 @@ def check_rans(tag: str, enc, dec, enc_plain, dec_plain, syms, tables,
             if not bool((xfin == 1 << 16).all()):
                 raise AssertionError(f"{tag}: final decoder states != 2^16")
     return counts
+
+
+def flat_rows(n: int) -> np.ndarray:
+    """Rows of 256 symbols of frequency 256: every lane renorms at every
+    other step, all lanes at once."""
+    return np.tile(np.arange(257, dtype=np.int32) * 256, (n, 1))
+
+
+def skewed_rows(n: int) -> np.ndarray:
+    """Rows where the coded symbol has frequency 65535 (symbol 0, or
+    symbol 1 after a zero-frequency symbol 0), the others 1 or 0: no lane
+    renorms for many steps."""
+    a = np.concatenate([[0, 65535], np.full(127, 65536)])
+    b = np.concatenate([[0, 0, 65535], np.full(126, 65536)])
+    return np.stack([a if k % 2 == 0 else b for k in range(n)]).astype(
+        np.int32)
+
+
+def check_decode_edges(rng, cdfs: np.ndarray, dev, errs: dict) -> None:
+    """Kernels B and C at the decoder's edges, each through ``check_rans``
+    (whole and truncated buffers): a lane count below one warp (N = 20),
+    steps where every lane or no lane renorms, and a table too large for
+    shared memory, which takes the global-memory instance."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    from simple_image_compression_network_tpu_torch.codec.int_codec import (
+        _lane_cdf)
+    cases = [  # tag, S, t, lane table, symbols (None: drawn from the rows)
+        ("N=20", 3, 30, _lane_cdf(cdfs, 20), None),
+        ("all lanes renorm every other step", 2, 40, flat_rows(64),
+         rng.integers(0, 128, size=(2, 40, 64))),
+        ("no lane renorms", 2, 48, skewed_rows(40),
+         np.broadcast_to(np.arange(40) % 2, (2, 48, 40))),
+        ("oversize N=1024", 2, 20, _lane_cdf(cdfs, 1024), None)]
+    for tag, s, t, table, syms in cases:
+        table = np.ascontiguousarray(table, np.int32)
+        n, l1 = table.shape
+        if syms is None:
+            syms = lane_symbols(rng, table, s, t)
+        syms = torch.from_numpy(np.ascontiguousarray(syms, np.int8)).to(dev)
+        inst = decode_instance(n, l1)
+        if inst != ("global" if tag.startswith("oversize") else "staged"):
+            raise AssertionError(f"kernel C {tag}: the {inst} instance")
+        counts = check_rans(
+            f"kernels B, C {tag}", cuda_rans.encode_batch_compact,
+            cuda_rans.decode, cuda_rans.encode_batch_compact_plain,
+            cuda_rans.decode_plain, syms,
+            (torch.from_numpy(table).to(dev),), t, n, errs,
+            ("rans_encode", "rans_decode"))
+        if tag.startswith("all") and not bool(
+                (counts == 2 * n + n * t // 2).all()):
+            raise AssertionError(f"{tag}: {counts.tolist()} words")
+        if tag.startswith("no") and not bool((counts == 2 * n).all()):
+            raise AssertionError(f"{tag}: {counts.tolist()} words")
+        log(f"kernel C edge {tag}: S={s} t={t} N={n} L+1={l1}, {inst} "
+            f"instance, bit-exact whole and cut, {int(counts.sum())} words")
 
 
 def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
@@ -562,34 +662,76 @@ def check_hyper_kernels(rng, codec, batch: int, dev, errs: dict) -> None:
         ("rans_encode", "rans_decode"))
     log(f"kernels B, C: z shapes S={s} t={t} N={n} L+1={lane_cdf.shape[1]} "
         f"bit-exact, {int(counts.sum())} words")
+    # kernel E at its edges: one row, contexts at both ends of the table,
+    # and 256 rows, too many for shared memory (the global instance)
+    for tag, s, t, n, table in (("R=1", 2, 20, 37, y_table[:1]),
+                                ("contexts 0 and R-1", 2, 20, 64, y_table),
+                                ("oversize R=256", 2, 20, 384,
+                                 np.tile(y_table, (4, 1)))):
+        table = np.ascontiguousarray(table, np.int32)
+        r = table.shape[0]
+        ctx = rng.integers(0, r, size=(s, t, n)).astype(np.int32)
+        if tag.startswith("contexts"):
+            ctx = np.where(ctx < r // 2, 0, r - 1).astype(np.int32)
+        u = rng.integers(0, 65536, size=(s, t, n))
+        syms = (table[ctx][..., 1:-1] <= u[..., None]).sum(-1).astype(
+            np.int32)
+        inst = decode_instance(n, table.shape[1], r)
+        if inst != ("global" if tag.startswith("oversize") else "staged"):
+            raise AssertionError(f"kernel E {tag}: the {inst} instance")
+        counts = check_rans(
+            f"kernels D, E {tag}", cuda_rans.encode_batch_compact_ctx,
+            cuda_rans.decode_ctx, cuda_rans.encode_batch_compact_ctx_plain,
+            cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
+            (torch.from_numpy(table).to(dev), torch.from_numpy(ctx).to(dev)),
+            t, n, errs, ("rans_encode_ctx", "rans_decode_ctx"))
+        log(f"kernel E edge {tag}: S={s} t={t} N={n} R={r} L+1="
+            f"{table.shape[1]}, {inst} instance, bit-exact whole and cut, "
+            f"{int(counts.sum())} words")
 
 
 def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
               n: int, sym_bytes: int, ctx_bytes: int) -> dict:
     """Time one encode kernel and one decode kernel at one shape beside
     their plain versions (on the card), and their byte bounds: each input
-    read once, each output written once (the words as written)."""
+    read once, each output written once (the words as written).  The
+    encoder by CUDA events around its wrapper (host included); the decoder
+    by ``kernel_ms`` of a call that launches it alone (its table layout
+    and outputs made ahead), beside its wrapper's time a call."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     s = syms.shape[0]
     words, counts = enc(syms, *tables)
     x0 = cuda_rans.split_init(words, n)
     n_words = int(counts.sum())
+    ctx_rows = len(tables) == 2
+    table = tables[0]
+    tb = cuda_rans.kernel_table(table, n, ctx_rows)
+    launch = cuda_rans._decode_ctx if ctx_rows else cuda_rans._decode
+    outs = tuple(torch.empty_like(o) for o in dec(words, x0, *tables, t))
+    for what, g, r in zip(("syms", "consumed", "x_fin"),
+                          launch(words, x0, *tables, t, tb, outs),
+                          dec(words, x0, *tables, t)):
+        require_equal(f"decode launched alone {what}", g, r)
     out = {
         "enc_ms": cuda_ms(lambda: enc(syms, *tables), 20),
         "enc_plain": cuda_ms(lambda: enc_plain(syms, *tables), 3),
-        "dec_ms": cuda_ms(lambda: dec(words, x0, *tables, t), 20),
+        "dec_ms": kernel_ms(lambda: launch(words, x0, *tables, t, tb, outs)),
+        "dec_wrapper_ms": cuda_ms(lambda: dec(words, x0, *tables, t), 20),
         "dec_plain": cuda_ms(lambda: dec_plain(words, x0, *tables, t), 3),
+        "instance": decode_instance(
+            n, table.shape[1], table.shape[0] if ctx_rows else None),
     }
-    table = tables[0].numel() * 4
+    out["per_step_us"] = out["dec_ms"] * 1e3 / t
+    table_bytes = table.numel() * 4
     states = 4 * x0.numel()
     n_sym = syms.numel()
-    enc_bytes = (n_sym * (sym_bytes + ctx_bytes) + table   # syms, ctx, table
+    enc_bytes = (n_sym * (sym_bytes + ctx_bytes) + table_bytes  # syms, ctx
                  + 2 * n_words + 4 * s)                    # words, counts
-    dec_bytes = (2 * n_words + states + table + n_sym * ctx_bytes
+    dec_bytes = (2 * n_words + states + table_bytes + n_sym * ctx_bytes
                  + n_sym * sym_bytes + 4 * s + states)  # syms, consumed, x_fin
     out["enc_bound"] = enc_bytes / PEAK_BYTES * 1e3
     out["dec_bound"] = dec_bytes / PEAK_BYTES * 1e3
-    out["shape"] = f"S={s} t={t} N={n} L+1={tables[0].shape[1]}"
+    out["shape"] = f"S={s} t={t} N={n} L+1={table.shape[1]}"
     out["n_words"] = n_words
     return out
 
@@ -682,11 +824,26 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     log(f"kernel H S={s} t={t} N={n}: {h['ms']:.4f} ms (plain "
         f"{h['plain']:.3f}, bound {h['bound']:.5f}); kernel B "
         f"{bc['enc_ms']:.4f} ms at the same shape")
-    for tag, r in (("B, C int8", bc), ("B, C z", bc_z), ("D, E y", de)):
+    # the global-memory instance of C, once, at an oversize lane table
+    lane_big = np.ascontiguousarray(_lane_cdf(cdfs, 1024), np.int32)
+    syms = torch.from_numpy(lane_symbols(rng, lane_big, 2, 96)).to(dev)
+    big = time_rans(cuda_rans.encode_batch_compact, cuda_rans.decode,
+                    cuda_rans.encode_batch_compact_plain,
+                    cuda_rans.decode_plain, syms,
+                    (torch.from_numpy(lane_big).to(dev),), 96, 1024, 1, 0)
+    for tag, r in (("B, C int8", bc), ("B, C z", bc_z), ("D, E y", de),
+                   ("B, C oversize", big)):
         log(f"kernels {tag} {r['shape']}: encode {r['enc_ms']:.4f} ms "
-            f"(plain {r['enc_plain']:.3f}, bound {r['enc_bound']:.5f}), "
-            f"decode {r['dec_ms']:.4f} ms (plain {r['dec_plain']:.3f}, "
-            f"bound {r['dec_bound']:.5f}); {r['n_words']} words")
+            f"(wrapper, plain {r['enc_plain']:.3f}, bound "
+            f"{r['enc_bound']:.5f}), decode {r['dec_ms']:.4f} ms on the card "
+            f"({r['per_step_us']:.3f} us a step, {r['instance']} instance; "
+            f"wrapper {r['dec_wrapper_ms']:.4f} ms a call, plain "
+            f"{r['dec_plain']:.3f}, bound {r['dec_bound']:.5f}); "
+            f"{r['n_words']} words")
+    for tag, r in (("int8 latent", bc), ("hyper z", bc_z), ("hyper y", de)):
+        if r["instance"] != "staged":
+            raise AssertionError(f"the decoder at the {tag} shape runs its "
+                                 f"{r['instance']} instance")
 
     pkg = "simple_image_compression_network_tpu_torch/csrc/"
     ref = "simple_image_compression_network_tpu/"
@@ -715,7 +872,16 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
 
     def z_shapes(r, kind):
         return {"shape": r["shape"], "ms": r[f"{kind}_ms"],
-                "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"]}
+                "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"],
+                **(decode_keys(r) if kind == "dec" else {})}
+
+    def decode_keys(r):
+        return {"per_step_us": r["per_step_us"], "instance": r["instance"],
+                "wrapper_ms": r["dec_wrapper_ms"]}
+    dec_unit = ("ms on the card (CUDA events behind a spin kernel, a call "
+                "that launches the kernel alone); wrapper_ms: CUDA events "
+                "around the wrapper, host included")
+    enc_unit = "ms by CUDA events around the wrapper, host included"
     a_path = {k: v for k, v in launches["conv3x3_s1_int8"].items()
               if k != "pallas"}
     return [
@@ -747,23 +913,27 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
         entry("rans_encode_dense", "rans_encode.cu",
               "codec/pallas_rans.py:413", errs["rans_encode_dense"],
               h["ms"], h["plain"], h["bound"],
-              f"one launch, {bc['shape']} (int8 latent)"),
+              f"one launch, {bc['shape']} (int8 latent); {enc_unit}"),
         entry("rans_encode", "rans_encode.cu", "codec/pallas_rans.py:514",
               errs["rans_encode"], bc["enc_ms"], bc["enc_plain"],
-              bc["enc_bound"], f"one launch, {bc['shape']} (int8 latent)",
+              bc["enc_bound"],
+              f"one launch, {bc['shape']} (int8 latent); {enc_unit}",
               z_shapes=z_shapes(bc_z, "enc")),
         entry("rans_decode", "rans_decode.cu", "codec/pallas_rans.py:121",
               errs["rans_decode"], bc["dec_ms"], bc["dec_plain"],
-              bc["dec_bound"], f"one launch, {bc['shape']} (int8 latent)",
-              z_shapes=z_shapes(bc_z, "dec")),
+              bc["dec_bound"],
+              f"one launch, {bc['shape']} (int8 latent); {dec_unit}",
+              z_shapes=z_shapes(bc_z, "dec"),
+              global_instance=z_shapes(big, "dec"), **decode_keys(bc)),
         entry("rans_encode_ctx", "rans_encode.cu",
               "codec/pallas_rans.py:549", errs["rans_encode_ctx"],
               de["enc_ms"], de["enc_plain"], de["enc_bound"],
-              f"one launch, {de['shape']} R=64 (hyper y)"),
+              f"one launch, {de['shape']} R=64 (hyper y); {enc_unit}"),
         entry("rans_decode_ctx", "rans_decode.cu",
               "codec/pallas_rans.py:275", errs["rans_decode_ctx"],
               de["dec_ms"], de["dec_plain"], de["dec_bound"],
-              f"one launch, {de['shape']} R=64 (hyper y)"),
+              f"one launch, {de['shape']} R=64 (hyper y); {dec_unit}",
+              **decode_keys(de)),
     ]
 
 
@@ -1207,6 +1377,7 @@ def main() -> int:
 
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
+        check_decode_edges(rng, cdfs, dev, errs)
         check_hyper_kernels(rng, codec, args.batch, dev, errs)
         check_layers(rng, args.batch, dev, errs)
         check_edges(rng, args.batch, dev, errs)

@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Time the port's rANS decode kernels C and E from one checkout, for A/B
+comparisons.
+
+    python3 scripts/torch_rans_ab.py [ROOT]
+
+ROOT (default: this checkout) holds the package
+``simple_image_compression_network_tpu_torch``; its kernels are built there.
+Prints the card's name and power limit, then for kernel C at the int8
+latent's shape (S = 16, t = 96, N = 384, rows of 130, the static latent
+CDFs) and at the hyper-latent z's (S = 2, t = 48, N = 256, rows of 129, the
+trained hyperprior's factorized CDFs), and kernel E at the hyper y shape
+(S = 16, t = 96, N = 384, 64 scale-bin rows of 257, uniform contexts): the
+kernel's device time and per step (CUDA events around 20 calls queued
+behind a spin kernel, after one warm-up, of a call that launches the
+kernel alone with its outputs and table layout made ahead: the private
+launcher ``cuda_rans._decode``/``_decode_ctx`` where ROOT has one, else
+ROOT's C entry point through ctypes) and the wrapper's time a call (CUDA
+events, mean of 50, host included).  The symbols, contexts and words are
+made from a fixed seed by ROOT's own encoder, and each decode is checked
+against the symbols.  To compare two checkouts, unpack the other one
+(``git archive``) into a directory that .gitignore lists and run both on
+one card, one after the other, in turns: other, this, this, other.  Needs
+a CUDA card and checkpoints/ under this checkout; imports torch and numpy.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+CKPT = os.path.join(HERE, "checkpoints")
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Device time a call of fn(), which launches one kernel: the calls
+    wait behind a spin kernel (``torch.cuda._sleep``) until all are
+    queued, so the host's time stays out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()     # the spin outlasted the queueing
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise RuntimeError("the spin kernel never outlasted the queueing")
+
+
+def lane_syms(rng, lane_cdf: np.ndarray, s: int, t: int) -> np.ndarray:
+    """(S, t, N) int8 symbols from each lane's row, below its last one."""
+    n = lane_cdf.shape[0]
+    syms = np.empty((s, t, n), np.int8)
+    for k in range(n):
+        u = rng.integers(0, lane_cdf[k, -2], size=(s, t))
+        syms[:, :, k] = np.searchsorted(lane_cdf[k, 1:], u, side="right")
+    return syms
+
+
+def main() -> int:
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    if not torch.cuda.is_available():
+        print("CUDA is not available: this script times kernels on a card")
+        return 2
+    sys.path.insert(0, root)
+    from simple_image_compression_network_tpu_torch import _build
+    from simple_image_compression_network_tpu_torch.codec import (
+        cuda_rans, hyper_codec)
+    from simple_image_compression_network_tpu_torch.codec.int_codec import (
+        _lane_cdf)
+    from simple_image_compression_network_tpu_torch.utils import weights_io
+    _, log = _build.build()
+    lib = _build.lib()
+    for line in log.splitlines():
+        if "registers" in line:
+            print("  ptxas:", line.strip())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    codec = hyper_codec.HyperCodec.from_checkpoint(
+        os.path.join(CKPT, "hp_scale_l0.01.params.msgpack"), device=dev)
+    cdfs = weights_io.load_static_cdfs(os.path.join(CKPT, "latent_cdfs.npz"))
+    alone = hasattr(cuda_rans, "_decode")
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+
+    def run(tag, words, x0, table, ctx, syms, t):
+        nonlocal ok
+        s, cap = words.shape
+        n = x0.shape[1]
+        dec = cuda_rans.decode if ctx is None else cuda_rans.decode_ctx
+        args = (table,) if ctx is None else (table, ctx)
+        out = dec(words, x0, *args, t)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0].to(torch.int64).cpu(),
+                           syms.to(torch.int64).cpu()):
+            print(f"{tag}: the decode lost the symbols")
+            ok = False
+        outs = tuple(torch.empty_like(o) for o in out)
+        if alone and ctx is None:
+            tb = cuda_rans.kernel_table(table, n, False)
+
+            def kernel():
+                cuda_rans._decode(words, x0, table, t, tb, outs)
+        elif alone:
+            tb = cuda_rans.kernel_table(table, n, True)
+
+            def kernel():
+                cuda_rans._decode_ctx(words, x0, table, ctx, t, tb, outs)
+        elif ctx is None:
+            def kernel():
+                _build.check(lib.sicn_rans_decode(
+                    words.data_ptr(), x0.data_ptr(), table.data_ptr(),
+                    *[o.data_ptr() for o in outs], s, cap, t, n,
+                    table.shape[1], stream), "rans decode")
+        else:
+            def kernel():
+                _build.check(lib.sicn_rans_decode_ctx(
+                    words.data_ptr(), x0.data_ptr(), ctx.data_ptr(),
+                    table.data_ptr(), *[o.data_ptr() for o in outs], s, cap,
+                    t, n, table.shape[0], table.shape[1], stream),
+                    "rans decode ctx")
+        kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs, out)):
+            print(f"{tag}: the kernel launched alone differs from the "
+                  f"wrapper")
+            ok = False
+        k = kernel_ms(kernel)
+        w = cuda_ms(lambda: dec(words, x0, *args, t))
+        print(f"{tag} S={s} t={t} N={n} L+1={table.shape[1]} [{root}, "
+              f"{card}]: kernel {k:.4f} ms ({k * 1e3 / t:.3f} us a step), "
+              f"wrapper {w:.4f} ms a call", flush=True)
+
+    for tag, table, s, t in (
+            ("kernel C, int8 latent", _lane_cdf(cdfs, 384), 16, 96),
+            ("kernel C, hyper z",
+             codec.z_cdfs[np.arange(256) % codec.z_cdfs.shape[0]], 2, 48)):
+        table = np.ascontiguousarray(table, np.int32)
+        syms = torch.from_numpy(lane_syms(rng, table, s, t)).to(dev)
+        lc = torch.from_numpy(table).to(dev)
+        words, _ = cuda_rans.encode_batch_compact(syms, lc)
+        run(tag, words, cuda_rans.split_init(words, table.shape[0]), lc,
+            None, syms, t)
+    y_table = np.ascontiguousarray(codec.y_cdfs_dev, np.int32)
+    s, t, n = 16, 96, 384
+    ctx = rng.integers(0, y_table.shape[0], size=(s, t, n)).astype(np.int32)
+    u = rng.integers(0, 65536, size=(s, t, n))
+    syms = (y_table[ctx][..., 1:-1] <= u[..., None]).sum(-1).astype(np.int32)
+    yt = torch.from_numpy(y_table).to(dev)
+    syms_d = torch.from_numpy(syms).to(dev)
+    ctx_d = torch.from_numpy(ctx).to(dev)
+    words, _ = cuda_rans.encode_batch_compact_ctx(syms_d, yt, ctx_d)
+    run("kernel E, hyper y", words, cuda_rans.split_init(words, n), yt,
+        ctx_d, syms_d, t)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,9 @@ tensors the wrappers launch the hand-written kernels of
 ``csrc/rans_encode.cu`` and ``csrc/rans_decode.cu``; on CPU tensors they
 run the plain versions built on ``codec/device_rans.py``.  Each wrapper
 counts its kernel launches (``.launches``) and its plain runs
-(``.plain_runs``).
+(``.plain_runs``).  C and E search their table in shared memory where it
+fits (``decode_staged_fits``), in a layout made once per table
+(``kernel_table``), and in global memory otherwise.
 
 u16 stream words travel as int16 tensors holding the bit patterns; u32
 states as int32 tensors.  CDF precision is 16 (the codec's only setting).
@@ -27,7 +29,8 @@ states as int32 tensors.  CDF precision is 16 (the codec's only setting).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -223,6 +226,96 @@ def split_init(words: torch.Tensor, n_lanes: int) -> torch.Tensor:
     return ((init[:, 0::2] << 16) | init[:, 1::2]).to(torch.int32)
 
 
+# --- decode (kernels C and E) ---------------------------------------------
+# Kernel C or E copies its table into shared memory when the table, in the
+# staged layout, and the stream ring fit one block's share; else its second
+# instance searches the table in global memory.  The byte counts below are
+# those of ``launch`` in csrc/rans_decode.cu.
+
+SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
+_TOTALS_BYTES = 256    # two buffers of 32 warp counts
+
+
+def _npad(n_lanes: int) -> int:
+    return -(-n_lanes // 32) * 32
+
+
+def _ring_words(npad: int) -> int:
+    """Words of the stream ring: a power of two >= 3 chunks of npad."""
+    r = 32
+    while r < 3 * npad:
+        r <<= 1
+    return r
+
+
+def _staged_ints(n_lanes: int, l1: int, n_rows: Optional[int]) -> int:
+    """int32 entries of the staged table: kernel C's (L+1, npad), or kernel
+    E's ``n_rows`` rows of pitch (L+1) | 1, rounded up to 4 entries."""
+    if n_rows is None:
+        return l1 * _npad(n_lanes)
+    return -(-n_rows * (l1 | 1) // 4) * 4
+
+
+def decode_staged_fits(n_lanes: int, l1: int,
+                       n_rows: Optional[int] = None) -> bool:
+    """Whether kernel C (``n_rows`` None) or E (a table of ``n_rows`` rows)
+    stages its table in shared memory at this shape: 4 bytes per staged
+    entry, 2 per word of the ring, and 256 for the warp counts must fit
+    ``SMEM_LIMIT``.  C's int8 latent (N = 384, L+1 = 130) takes 204,032
+    bytes, z (256, 129) 134,400, E's hyper y (384, R = 64, 257) 70,144;
+    N = 1024 lanes of 130 entries would take 540,928 and run in global
+    memory."""
+    return (4 * _staged_ints(n_lanes, l1, n_rows)
+            + 2 * _ring_words(_npad(n_lanes)) + _TOTALS_BYTES) <= SMEM_LIMIT
+
+
+def stage_lane_table(lane_cdf: torch.Tensor) -> torch.Tensor:
+    """(N, L+1) lane table -> kernel C's staged layout, flat: entry j of
+    lane k at j * npad + k, lanes past N zero."""
+    n, l1 = lane_cdf.shape
+    out = lane_cdf.new_zeros((l1, _npad(n)))
+    out[:, :n] = lane_cdf.t()
+    return out.reshape(-1)
+
+
+def stage_ctx_table(table: torch.Tensor) -> torch.Tensor:
+    """(R, L+1) shared table -> kernel E's staged layout, flat: row r at
+    r * pitch, pitch = (L+1) | 1, zero-padded to a multiple of 4."""
+    r, l1 = table.shape
+    out = table.new_zeros(_staged_ints(0, l1, r))
+    out[: r * (l1 | 1)].view(r, l1 | 1)[:, :l1] = table
+    return out
+
+
+_staged: Dict[Tuple[int, bool], tuple] = {}
+
+
+def kernel_table(table: torch.Tensor, n_lanes: int,
+                 ctx_rows: bool) -> torch.Tensor:
+    """The table as kernel C (``ctx_rows`` False: the (N, L+1) lane table)
+    or E (the (R, L+1) shared table) reads it for ``n_lanes`` lanes: where
+    the staged instance runs, its staged layout, made once per table
+    tensor and kept while that tensor lives and is not written to; else
+    the table itself."""
+    rows, l1 = table.shape
+    if not decode_staged_fits(n_lanes, l1, rows if ctx_rows else None):
+        return table
+    key = (id(table), ctx_rows)
+    try:
+        version = table._version
+    except RuntimeError:          # an inference tensor: no version counter
+        version = None
+    hit = _staged.get(key)
+    if (hit is not None and version is not None and hit[0]() is table
+            and hit[1] == version):
+        return hit[2]
+    out = (stage_ctx_table if ctx_rows else stage_lane_table)(table)
+    if version is not None:
+        _staged[key] = (weakref.ref(table, lambda _, k=key: _staged.pop(
+            k, None)), version, out)
+    return out
+
+
 def decode_plain(words: torch.Tensor, x0: torch.Tensor,
                  lane_cdf: torch.Tensor, t_steps: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -230,6 +323,38 @@ def decode_plain(words: torch.Tensor, x0: torch.Tensor,
     syms, consumed, x_fin = device_rans.decode(words, x0, lane_cdf, t_steps)
     return (syms.to(torch.int8), consumed.to(torch.int32),
             x_fin.to(torch.int32))
+
+
+def _check_decode_io(words: torch.Tensor, x0: torch.Tensor) -> None:
+    if words.dim() != 2 or words.dtype != torch.int16:
+        raise ValueError("words must be (S, cap) int16")
+    if x0.dim() != 2 or x0.dtype != torch.int32 or x0.shape[0] != \
+            words.shape[0]:
+        raise ValueError("x0 must be (S, N) int32")
+    if x0.device != words.device:
+        raise ValueError("words and x0 must be on one device")
+
+
+def _decode_outputs(s: int, t_steps: int, n: int, sym_dtype, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return (torch.empty((s, t_steps, n), dtype=sym_dtype, device=device),
+            torch.empty((s,), dtype=torch.int32, device=device),
+            torch.empty((s, n), dtype=torch.int32, device=device))
+
+
+def _check_kernel_table(tb: torch.Tensor, table: torch.Tensor,
+                        n_lanes: int, ctx_rows: bool) -> None:
+    """``tb`` made ahead must have the shape of ``kernel_table(table,
+    n_lanes, ctx_rows)`` and lie 16-byte aligned on the table's device."""
+    rows, l1 = table.shape
+    n_rows = rows if ctx_rows else None
+    want = ((_staged_ints(n_lanes, l1, n_rows),)
+            if decode_staged_fits(n_lanes, l1, n_rows) else table.shape)
+    if (tuple(tb.shape) != tuple(want) or tb.dtype != torch.int32
+            or tb.device != table.device or not tb.is_contiguous()
+            or tb.data_ptr() % 16):
+        raise ValueError(f"kernel table {tuple(tb.shape)} {tb.dtype} does "
+                         f"not fit this table")
 
 
 def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
@@ -240,36 +365,43 @@ def decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
     words: (S, cap) int16 u16 stream words past the header (the 2N flush
     words first; zero padding after the stream is ignored);
     x0: (S, N) int32 initial states (``split_init``);
-    lane_cdf: (N, L+1) int32, rows increasing.
+    lane_cdf: (N, L+1) int32, rows non-decreasing.
     Returns (syms (S, t, N) int8, consumed (S,) int32, x_fin (S, N) int32).
     The caller checks validity: consumed == word count, x_fin == 2^16."""
-    if words.dim() != 2 or words.dtype != torch.int16:
-        raise ValueError("words must be (S, cap) int16")
-    if x0.dim() != 2 or x0.dtype != torch.int32 or x0.shape[0] != \
-            words.shape[0]:
-        raise ValueError("x0 must be (S, N) int32")
+    return _decode(words, x0, lane_cdf, t_steps)
+
+
+def _decode(words: torch.Tensor, x0: torch.Tensor, lane_cdf: torch.Tensor,
+            t_steps: int, tb: Optional[torch.Tensor] = None, out=None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode`` with ``tb``, ``kernel_table(lane_cdf, N, False)``, and
+    ``out``, the outputs, made ahead (or None to make them here)."""
+    _check_decode_io(words, x0)
     s, cap = words.shape
     n = x0.shape[1]
     _check_lane_cdf(lane_cdf, n, words.device)
-    if x0.device != words.device:
-        raise ValueError("words and x0 must be on one device")
     if words.device.type == "cpu":
         decode.plain_runs += 1
         return decode_plain(words, x0, lane_cdf, t_steps)
     _cuda_ready(words, x0, lane_cdf)
-    syms = torch.empty((s, t_steps, n), dtype=torch.int8, device=words.device)
-    consumed = torch.empty((s,), dtype=torch.int32, device=words.device)
-    x_fin = torch.empty((s, n), dtype=torch.int32, device=words.device)
+    l1 = lane_cdf.shape[1]
+    if tb is None:
+        tb = kernel_table(lane_cdf, n, False)
+    else:
+        _check_kernel_table(tb, lane_cdf, n, False)
+    if out is None:
+        out = _decode_outputs(s, t_steps, n, torch.int8, words.device)
+    syms, consumed, x_fin = out
     lib = _build.lib()
     with torch.cuda.device(words.device):
         err = lib.sicn_rans_decode(
-            words.data_ptr(), x0.data_ptr(), lane_cdf.data_ptr(),
-            syms.data_ptr(), consumed.data_ptr(), x_fin.data_ptr(),
-            s, cap, t_steps, n, lane_cdf.shape[1],
+            words.data_ptr(), x0.data_ptr(), tb.data_ptr(), syms.data_ptr(),
+            consumed.data_ptr(), x_fin.data_ptr(), s, cap, t_steps, n, l1,
+            int(decode_staged_fits(n, l1)),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans decode")
     decode.launches += 1
-    return syms, consumed, x_fin
+    return out
 
 
 decode.launches = 0
@@ -292,37 +424,45 @@ def decode_ctx(words: torch.Tensor, x0: torch.Tensor, table: torch.Tensor,
     """Kernel E: decode S streams whose symbols pick their CDF rows.
 
     words, x0 as in ``decode``; table: (R, L+1) int32 shared CDF table,
-    rows increasing; ctx: (S, t, N) int32 row indices.
+    rows non-decreasing; ctx: (S, t, N) int32 row indices.
     Returns (syms (S, t, N) int32, consumed (S,) int32, x_fin (S, N)
     int32); the caller checks consumed and x_fin as for ``decode``."""
-    if words.dim() != 2 or words.dtype != torch.int16:
-        raise ValueError("words must be (S, cap) int16")
-    if x0.dim() != 2 or x0.dtype != torch.int32 or x0.shape[0] != \
-            words.shape[0]:
-        raise ValueError("x0 must be (S, N) int32")
+    return _decode_ctx(words, x0, table, ctx, t_steps)
+
+
+def _decode_ctx(words: torch.Tensor, x0: torch.Tensor, table: torch.Tensor,
+                ctx: torch.Tensor, t_steps: int,
+                tb: Optional[torch.Tensor] = None, out=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_ctx`` with ``tb``, ``kernel_table(table, N, True)``, and
+    ``out`` made ahead (or None to make them here)."""
+    _check_decode_io(words, x0)
     s, cap = words.shape
     n = x0.shape[1]
     _check_ctx_table(table, ctx, (s, t_steps, n), words.device)
-    if x0.device != words.device:
-        raise ValueError("words and x0 must be on one device")
     if words.device.type == "cpu":
         decode_ctx.plain_runs += 1
         return decode_ctx_plain(words, x0, table, ctx, t_steps)
     _cuda_ready(words, x0, ctx, table)
-    syms = torch.empty((s, t_steps, n), dtype=torch.int32,
-                       device=words.device)
-    consumed = torch.empty((s,), dtype=torch.int32, device=words.device)
-    x_fin = torch.empty((s, n), dtype=torch.int32, device=words.device)
+    r, l1 = table.shape
+    staged = decode_staged_fits(n, l1, r)
+    if tb is None:
+        tb = kernel_table(table, n, True)
+    else:
+        _check_kernel_table(tb, table, n, True)
+    if out is None:
+        out = _decode_outputs(s, t_steps, n, torch.int32, words.device)
+    syms, consumed, x_fin = out
     lib = _build.lib()
     with torch.cuda.device(words.device):
         err = lib.sicn_rans_decode_ctx(
-            words.data_ptr(), x0.data_ptr(), ctx.data_ptr(),
-            table.data_ptr(), syms.data_ptr(), consumed.data_ptr(),
-            x_fin.data_ptr(), s, cap, t_steps, n, table.shape[0],
-            table.shape[1], torch.cuda.current_stream().cuda_stream)
+            words.data_ptr(), x0.data_ptr(), ctx.data_ptr(), tb.data_ptr(),
+            syms.data_ptr(), consumed.data_ptr(), x_fin.data_ptr(), s, cap,
+            t_steps, n, r, l1, (l1 | 1) if staged else l1, int(staged),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans decode ctx")
     decode_ctx.launches += 1
-    return syms, consumed, x_fin
+    return out
 
 
 decode_ctx.launches = 0

@@ -54,9 +54,25 @@ def _lane_cdf(cdfs: np.ndarray, n_lanes: int) -> np.ndarray:
     return cdfs[np.arange(n_lanes) % c]
 
 
+_lane_tables: Dict[Tuple[int, torch.device], Tuple[np.ndarray,
+                                                  torch.Tensor]] = {}
+
+
 def _lane_cdf_tensor(cdfs: np.ndarray, n_lanes: int, device) -> torch.Tensor:
+    """The per-lane table on ``device``, uploaded once per (n_lanes,
+    device) while ``cdfs`` keeps its values: an upload from pageable host
+    memory waits for the stream, and the decoder keeps its staged layout
+    of this tensor (``cuda_rans.kernel_table``).  Callers must not write
+    to it."""
+    key = (n_lanes, torch.device(device))
+    hit = _lane_tables.get(key)
+    if hit is not None and hit[0].shape == cdfs.shape and np.array_equal(
+            hit[0], cdfs):
+        return hit[1]
     rows = np.ascontiguousarray(_lane_cdf(cdfs, n_lanes), np.int32)
-    return torch.from_numpy(rows).to(device)
+    table = torch.from_numpy(rows).to(device)
+    _lane_tables[key] = (np.array(cdfs, copy=True), table)
+    return table
 
 
 def _require_device_coder(coder: str, static_cdfs) -> None:
