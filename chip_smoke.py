@@ -9,8 +9,8 @@ and spills (ptxas) and its tensor-core and __dp4a instruction counts (SASS,
 cuobjdump), holds each kernel bit-exactly against its plain PyTorch version
 (kernel F and kernel A's forms at the eight layers' shapes, the halo modes,
 and edge shapes off the tiles and the MMA granules; the rANS kernels at the
-paths' shapes and, for the decoders C and E, at their edges, whole and
-truncated, on both instances), then drives the port's
+paths' shapes and at their edges, the decoders whole and truncated, each
+encoder and decoder on each of its instances), then drives the port's
 paths at full width on B random-seeded 768x512 images:
 
 * the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
@@ -27,17 +27,17 @@ paths at full width on B random-seeded 768x512 images:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
-paths' shapes beside its plain version and its bound (the conv kernels
-with their weights packed ahead and the decode kernels C and E with their
-table layout and outputs made ahead, so that a call launches the kernel
-alone, by CUDA events around calls queued behind a spin kernel, since
-their wrappers' host time can exceed the kernel's; the rANS encoders by
-CUDA events around their wrappers) and, for the convs, two
-yardsticks the port never calls: one cuDNN call of the same layer (float32
-without TF32, the same function; bf16, not the same function) and
-``torch._int_mm`` on the layer's implicit-GEMM shape.  The hyper path's
-time is broken down by stage (host clock) and by device kernel
-(torch.profiler).
+paths' shapes beside its plain version and its bound (the conv kernels with
+their weights packed ahead, the rANS kernels with their table layout and
+outputs made ahead, so that a call launches the kernel alone, by CUDA events
+around calls queued behind a spin kernel, since their wrappers' host time
+can exceed the kernel's; each wrapper's time a call beside it) and, for the
+convs, two yardsticks the port never calls: one cuDNN call of the same
+layer (float32 without TF32, the same function; bf16, not the same
+function) and ``torch._int_mm`` on the layer's implicit-GEMM shape.  The
+rANS encoders' bound is the larger of their bytes and their serial chain
+(``CHAIN_CYCLES`` a step).  The hyper path's time is broken down by stage
+(host clock) and by device kernel (torch.profiler).
 
 Output: one line per phase with its seconds; then the card's name and
 power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line, and as the
@@ -65,6 +65,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WATCHDOG_S = 600          # a hang ends as a traceback and a non-zero exit
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (data sheet)
+BOOST_HZ = 1.98e9         # H100 SXM boost clock (data sheet)
+# The least dependent chain of one rANS encode step, the bound of kernels
+# B, D and H.  freq is known a group ahead, so everything made from it alone
+# is off the chain: the renorm threshold (freq << 16) - 1, 2^16 - freq, and
+# a (magic, sh1, sh2) pair for an exact 32-bit x / freq (the round-up method
+# with a 33-bit magic).  What is left: ISETP (need = x > threshold; the SHF
+# x >> 16 beside it), SEL (y), the division's IMAD.HI (t = hi(y * magic)),
+# IADD (y - t), SHF (>> sh1), IADD (+ t), SHF (>> sh2) = q, and one IMAD,
+# x = q * (2^16 - freq) + (y + start), the IADD y + start beside the
+# division: 8 instructions, each at least the 4 cycles a fixed-latency
+# integer result takes to reach the next.  (The kernels' own SASS chain is
+# longer, 15 instructions: SHF, ISETP, SEL, then ptxas's division IMAD.HI,
+# IMAD.MOV, IMAD, ISETP, IADD, ISETP, IADD, LOP3, IMAD.MOV, IMAD, and the
+# IMAD.IADD and IMAD of the update.)
+CHAIN_CYCLES = 8 * 4
 H, W = 768, 512           # the reference geometry
 HYPER_CKPT = os.path.join(ROOT, "checkpoints",
                           "hp_scale_l0.01.params.msgpack")
@@ -180,10 +195,55 @@ def decode_name(mangled: str) -> str:
             f"{'staged' if m.group(3) == '1' else 'global'}>")
 
 
+def encode_name(mangled: str) -> str:
+    """'rans_encode_kernel<B|D, global|u16|staged>' for an instance of the
+    compact encoders' template, else ''."""
+    m = re.search(r"rans_encode_kernelI([ai])Lb([01])ELi([012])E", mangled)
+    if not m:
+        return ""
+    return (f"rans_encode_kernel<{'D' if m.group(2) == '1' else 'B'}, "
+            f"{('global', 'u16', 'staged')[int(m.group(3))]}>")
+
+
+def check_encode_sass(fn: str, chunk: str) -> None:
+    """An encode instance: no barrier between its first and last ballot
+    (VOTE, only in the step loop); one barrier after the table copy
+    (staged), one after the steps and two in the scan; the staged ones read
+    table and slots in shared memory and make no generic load."""
+    name = encode_name(fn)
+    ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk)
+    votes = [i for i, op in enumerate(ops) if op == "VOTE"]
+    bars = [i for i, op in enumerate(ops) if op == "BAR"]
+    counts = {op: ops.count(op) for op in ("BAR", "VOTE", "LDS", "STS", "LD",
+                                           "LDG", "STG", "MUFU")}
+    in_loop = sum(votes[0] < b < votes[-1] for b in bars) if votes else -1
+    # the step loop: the backward branch whose body holds the most ballots,
+    # one a step
+    insts = [(int(a, 16), txt) for a, txt in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+    loops = [(0, 0)]
+    for at, txt in insts:
+        tgt = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", txt)
+        if tgt and int(tgt.group(1), 16) < at:
+            body = [x for a, x in insts if int(tgt.group(1), 16) <= a <= at]
+            loops.append((sum("VOTE" in x for x in body), len(body)))
+    steps, n_ins = max(loops)
+    log(f"  SASS {name}: {counts}, barriers between the ballots: {in_loop}; "
+        f"step loop: {steps} steps, {n_ins / max(steps, 1):.1f} "
+        f"instructions a step")
+    staged = not name.endswith("global>")
+    if (in_loop != 0 or len(bars) != 3 + staged or (staged and (
+            counts["LD"] or not counts["LDS"]))):
+        raise AssertionError(f"{fn}: a barrier in the step loop, or not "
+                             f"{3 + staged} barriers, or generic loads in a "
+                             f"staged instance")
+
+
 def report_conv_build(lib_path: str, build_log: str) -> None:
     """Each kernel's ptxas lines (registers, static shared memory, spills)
-    and the conv kernels' SASS: each must hold int8 tensor-core
-    instructions (IMMA or IGMMA) and no IDP4A."""
+    and the SASS: each conv kernel must hold int8 tensor-core instructions
+    (IMMA or IGMMA) and no IDP4A; each decode instance one barrier a step;
+    each compact encode instance none in its step loop."""
     name = None
     for line in build_log.splitlines():
         found = re.search(r"entry function '(\w+)'", line)
@@ -196,7 +256,7 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
                 "conv_sparse_int8"
             short = (f"{CONV_KERNEL}<WM={tile.group(1)}, MF={tile.group(2)}, "
                      f"NF={tile.group(3)}> in {src}.cu"
-                     if tile else decode_name(name) or
+                     if tile else decode_name(name) or encode_name(name) or
                      re.search(r"[a-z][a-z_]*kernel", name)[0])
             log(f"  ptxas {short}: {line.split(':', 1)[-1].strip()}")
     from simple_image_compression_network_tpu_torch import _build
@@ -207,9 +267,13 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         return
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120, check=True)
-    n_conv = n_dec = 0
+    n_conv = n_dec = n_enc = 0
     for chunk in res.stdout.split("Function : ")[1:]:
         fn = chunk.split("\n", 1)[0].strip()
+        if encode_name(fn):
+            n_enc += 1
+            check_encode_sass(fn, chunk)
+            continue
         if decode_name(fn):
             # one barrier before the steps and one a step; the staged
             # instances read the table and the ring in shared memory only
@@ -231,12 +295,13 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         if counts["IMMA"] + counts["IGMMA"] == 0 or counts["IDP4A"]:
             raise AssertionError(f"{fn}: no int8 tensor-core instruction, "
                                  f"or IDP4A left")
-    if not n_conv or n_dec != 4:
-        raise AssertionError(f"{n_conv} conv and {n_dec} decode kernel "
-                             f"instances in the library's SASS")
+    if not n_conv or n_dec != 4 or n_enc != 4:
+        raise AssertionError(f"{n_conv} conv, {n_dec} decode and {n_enc} "
+                             f"encode kernel instances in the library's SASS")
     log(f"SASS: {n_conv} conv kernel instances, each with int8 tensor-core "
         f"instructions and no IDP4A; {n_dec} decode kernel instances, each "
-        f"with one barrier a step")
+        f"with one barrier a step; {n_enc} compact encode instances, none "
+        f"with a barrier in its step loop")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -313,6 +378,16 @@ def decode_instance(n: int, l1: int, n_rows=None) -> str:
             else "global")
 
 
+def encode_instance(table: torch.Tensor, n: int, t: int,
+                    ctx_rows: bool) -> str:
+    """The instance of kernel B (``ctx_rows`` False) or D for this table at
+    this shape: 'u16' or 'staged' (the table in shared memory as u16 or
+    int32), or 'global'."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    mode = cuda_rans.encode_kernel_table(table, n, t, ctx_rows)[1]
+    return ("global", "u16", "staged")[mode]
+
+
 def decode_cuts(n: int, width: int) -> list:
     """Buffer lengths the decoders are held at beside the whole buffer:
     cut inside the ring's first fill (2N + 5 words), inside its first
@@ -358,6 +433,36 @@ def check_rans(tag: str, enc, dec, enc_plain, dec_plain, syms, tables,
     return counts
 
 
+def check_encode_dirty(tag: str, syms, tables, t: int, n: int, errs: dict,
+                       key: str) -> None:
+    """Kernel B (``tables`` the lane table) or D (table, ctx) launched alone
+    on outputs filled with a nonzero pattern, the global instance's scratch
+    too: the words over the whole width, so the zero tail the kernel
+    writes itself, and the counts must equal the plain version's."""
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    ctx_rows = len(tables) == 2
+    tb = cuda_rans.encode_kernel_table(tables[0], n, t, ctx_rows)
+    words, counts, scratch = out = cuda_rans._encode_outputs(
+        syms.shape[0], t, n, tb[1], syms.device)
+    words.fill_(0x5A5A)
+    counts.fill_(-1)
+    if scratch is not None:
+        scratch.fill_(0xA5)
+    launch = cuda_rans._encode_ctx if ctx_rows else cuda_rans._encode
+    plain = (cuda_rans.encode_batch_compact_ctx_plain if ctx_rows
+             else cuda_rans.encode_batch_compact_plain)
+    got_w, got_c = launch(syms, *tables, tb, out)
+    if got_w.data_ptr() != words.data_ptr():
+        raise AssertionError(f"{tag}: the words were not written in place")
+    ref_w, ref_c = plain(syms.cpu(), *[a.cpu() for a in tables])
+    errs[key] = max(errs[key],
+                    require_equal(f"{tag} on filled outputs counts", got_c,
+                                  ref_c),
+                    require_equal(f"{tag} on filled outputs words",
+                                  got_w.to(torch.int32) & 0xFFFF,
+                                  ref_w.to(torch.int32) & 0xFFFF))
+
+
 def flat_rows(n: int) -> np.ndarray:
     """Rows of 256 symbols of frequency 256: every lane renorms at every
     other step, all lanes at once."""
@@ -374,43 +479,54 @@ def skewed_rows(n: int) -> np.ndarray:
         np.int32)
 
 
-def check_decode_edges(rng, cdfs: np.ndarray, dev, errs: dict) -> None:
-    """Kernels B and C at the decoder's edges, each through ``check_rans``
-    (whole and truncated buffers): a lane count below one warp (N = 20),
-    steps where every lane or no lane renorms, and a table too large for
-    shared memory, which takes the global-memory instance."""
+def check_lane_edges(rng, cdfs: np.ndarray, dev, errs: dict) -> None:
+    """Kernels B and C at their edges, each through ``check_rans`` (whole
+    and truncated buffers): a lane count below one warp (N = 20), steps
+    where every lane or no lane renorms, a table too large for shared
+    memory (N = 1024), and the steps of a 3840x2160 frame's stream (t =
+    2,025), whose slots do not fit either: between them both instances of
+    B (u16, global) and of C.  The no-renorm table has zero-frequency
+    symbols and 2^16 before its last entry: its u16 layout is exact for
+    every symbol it codes."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     from simple_image_compression_network_tpu_torch.codec.int_codec import (
         _lane_cdf)
-    cases = [  # tag, S, t, lane table, symbols (None: drawn from the rows)
-        ("N=20", 3, 30, _lane_cdf(cdfs, 20), None),
+    cases = [  # tag, S, t, lane table, symbols (None: drawn from the rows),
+        #        the instances of B and C
+        ("N=20", 3, 30, _lane_cdf(cdfs, 20), None, "u16", "staged"),
         ("all lanes renorm every other step", 2, 40, flat_rows(64),
-         rng.integers(0, 128, size=(2, 40, 64))),
+         rng.integers(0, 128, size=(2, 40, 64)), "u16", "staged"),
         ("no lane renorms", 2, 48, skewed_rows(40),
-         np.broadcast_to(np.arange(40) % 2, (2, 48, 40))),
-        ("oversize N=1024", 2, 20, _lane_cdf(cdfs, 1024), None)]
-    for tag, s, t, table, syms in cases:
+         np.broadcast_to(np.arange(40) % 2, (2, 48, 40)), "u16", "staged"),
+        ("oversize N=1024", 2, 20, _lane_cdf(cdfs, 1024), None, "global",
+         "global"),
+        ("3840x2160 stream t=2025", 1, 2025, _lane_cdf(cdfs, 384), None,
+         "global", "staged")]
+    for tag, s, t, table, syms, enc_inst, dec_inst in cases:
         table = np.ascontiguousarray(table, np.int32)
         n, l1 = table.shape
         if syms is None:
             syms = lane_symbols(rng, table, s, t)
         syms = torch.from_numpy(np.ascontiguousarray(syms, np.int8)).to(dev)
-        inst = decode_instance(n, l1)
-        if inst != ("global" if tag.startswith("oversize") else "staged"):
-            raise AssertionError(f"kernel C {tag}: the {inst} instance")
+        lc = torch.from_numpy(table).to(dev)
+        insts = (encode_instance(lc, n, t, False), decode_instance(n, l1))
+        if insts != (enc_inst, dec_inst):
+            raise AssertionError(f"kernels B, C {tag}: instances {insts}")
         counts = check_rans(
             f"kernels B, C {tag}", cuda_rans.encode_batch_compact,
             cuda_rans.decode, cuda_rans.encode_batch_compact_plain,
-            cuda_rans.decode_plain, syms,
-            (torch.from_numpy(table).to(dev),), t, n, errs,
+            cuda_rans.decode_plain, syms, (lc,), t, n, errs,
             ("rans_encode", "rans_decode"))
+        check_encode_dirty(f"kernel B {tag}", syms, (lc,), t, n, errs,
+                           "rans_encode")
         if tag.startswith("all") and not bool(
                 (counts == 2 * n + n * t // 2).all()):
             raise AssertionError(f"{tag}: {counts.tolist()} words")
         if tag.startswith("no") and not bool((counts == 2 * n).all()):
             raise AssertionError(f"{tag}: {counts.tolist()} words")
-        log(f"kernel C edge {tag}: S={s} t={t} N={n} L+1={l1}, {inst} "
-            f"instance, bit-exact whole and cut, {int(counts.sum())} words")
+        log(f"kernels B, C edge {tag}: S={s} t={t} N={n} L+1={l1}, B {enc_inst}"
+            f" instance, C {dec_inst} instance, bit-exact whole and cut and "
+            f"on filled outputs, {int(counts.sum())} words")
 
 
 def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
@@ -662,42 +778,77 @@ def check_hyper_kernels(rng, codec, batch: int, dev, errs: dict) -> None:
         ("rans_encode", "rans_decode"))
     log(f"kernels B, C: z shapes S={s} t={t} N={n} L+1={lane_cdf.shape[1]} "
         f"bit-exact, {int(counts.sum())} words")
-    # kernel E at its edges: one row, contexts at both ends of the table,
-    # and 256 rows, too many for shared memory (the global instance)
-    for tag, s, t, n, table in (("R=1", 2, 20, 37, y_table[:1]),
-                                ("contexts 0 and R-1", 2, 20, 64, y_table),
-                                ("oversize R=256", 2, 20, 384,
-                                 np.tile(y_table, (4, 1)))):
+    # kernels D and E at their edges: one row, contexts at both ends of the
+    # table, every lane or no lane renorming, 256 rows (too many for shared
+    # memory: both global instances), and 600 steps (D's slots do not fit)
+    flat, skew = flat_rows(4), skewed_rows(2)
+    for tag, s, t, n, table, insts in (
+            ("R=1", 2, 20, 37, y_table[:1], ("staged", "staged")),
+            ("contexts 0 and R-1", 2, 20, 64, y_table, ("staged", "staged")),
+            ("all lanes renorm every other step", 2, 40, 64, flat,
+             ("staged", "staged")),
+            ("no lane renorms", 2, 48, 40, skew, ("staged", "staged")),
+            ("oversize R=256", 2, 20, 384, np.tile(y_table, (4, 1)),
+             ("global", "global")),
+            ("t=600", 1, 600, 384, y_table, ("global", "staged"))):
         table = np.ascontiguousarray(table, np.int32)
         r = table.shape[0]
         ctx = rng.integers(0, r, size=(s, t, n)).astype(np.int32)
         if tag.startswith("contexts"):
             ctx = np.where(ctx < r // 2, 0, r - 1).astype(np.int32)
-        u = rng.integers(0, 65536, size=(s, t, n))
-        syms = (table[ctx][..., 1:-1] <= u[..., None]).sum(-1).astype(
-            np.int32)
-        inst = decode_instance(n, table.shape[1], r)
-        if inst != ("global" if tag.startswith("oversize") else "staged"):
-            raise AssertionError(f"kernel E {tag}: the {inst} instance")
+        if tag.startswith("no"):   # lane k codes symbol k % 2 in row k % 2
+            ctx = np.ascontiguousarray(np.broadcast_to(
+                np.arange(n, dtype=np.int32) % 2, (s, t, n)))
+            syms = ctx.copy()
+        else:
+            u = rng.integers(0, 65536, size=(s, t, n))
+            syms = (table[ctx][..., 1:-1] <= u[..., None]).sum(-1).astype(
+                np.int32)
+        tt = torch.from_numpy(table).to(dev)
+        got = (encode_instance(tt, n, t, True),
+               decode_instance(n, table.shape[1], r))
+        if got != insts:
+            raise AssertionError(f"kernels D, E {tag}: instances {got}")
+        syms_d = torch.from_numpy(syms).to(dev)
+        tables = (tt, torch.from_numpy(ctx).to(dev))
         counts = check_rans(
             f"kernels D, E {tag}", cuda_rans.encode_batch_compact_ctx,
             cuda_rans.decode_ctx, cuda_rans.encode_batch_compact_ctx_plain,
-            cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
-            (torch.from_numpy(table).to(dev), torch.from_numpy(ctx).to(dev)),
-            t, n, errs, ("rans_encode_ctx", "rans_decode_ctx"))
-        log(f"kernel E edge {tag}: S={s} t={t} N={n} R={r} L+1="
-            f"{table.shape[1]}, {inst} instance, bit-exact whole and cut, "
+            cuda_rans.decode_ctx_plain, syms_d, tables, t, n, errs,
+            ("rans_encode_ctx", "rans_decode_ctx"))
+        check_encode_dirty(f"kernel D {tag}", syms_d, tables, t, n, errs,
+                           "rans_encode_ctx")
+        if tag.startswith("all") and not bool(
+                (counts == 2 * n + n * t // 2).all()):
+            raise AssertionError(f"{tag}: {counts.tolist()} words")
+        if tag.startswith("no") and not bool((counts == 2 * n).all()):
+            raise AssertionError(f"{tag}: {counts.tolist()} words")
+        log(f"kernels D, E edge {tag}: S={s} t={t} N={n} R={r} L+1="
+            f"{table.shape[1]}, D {insts[0]} instance, E {insts[1]} "
+            f"instance, bit-exact whole and cut and on filled outputs, "
             f"{int(counts.sum())} words")
+
+
+def chain_bound_ms(t: int) -> float:
+    """The least time of t dependent encode steps: t * CHAIN_CYCLES at the
+    boost clock."""
+    return t * CHAIN_CYCLES / BOOST_HZ * 1e3
+
+
+def bound_by(byte_bound: float, chain_bound: float) -> str:
+    """Which of an encoder's two bounds is its bound."""
+    return "chain" if chain_bound >= byte_bound else "bytes"
 
 
 def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
               n: int, sym_bytes: int, ctx_bytes: int) -> dict:
     """Time one encode kernel and one decode kernel at one shape beside
-    their plain versions (on the card), and their byte bounds: each input
-    read once, each output written once (the words as written).  The
-    encoder by CUDA events around its wrapper (host included); the decoder
-    by ``kernel_ms`` of a call that launches it alone (its table layout
-    and outputs made ahead), beside its wrapper's time a call."""
+    their plain versions (on the card), and their bounds: the byte bound
+    (each input read once, each output written once, the words as written)
+    and, for the encoder, the chain bound of its t steps.  Each kernel by
+    ``kernel_ms`` of a call that launches it alone (its table layout and
+    outputs made ahead, held equal to the wrapper first), beside its
+    wrapper's time a call (CUDA events, host included)."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
     s = syms.shape[0]
     words, counts = enc(syms, *tables)
@@ -705,6 +856,14 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
     n_words = int(counts.sum())
     ctx_rows = len(tables) == 2
     table = tables[0]
+    etb = cuda_rans.encode_kernel_table(table, n, t, ctx_rows)
+    eouts = cuda_rans._encode_outputs(s, t, n, etb[1], syms.device)
+    eouts[0].fill_(0x5A5A)     # the kernel writes every word, the tail too
+    enc_alone = cuda_rans._encode_ctx if ctx_rows else cuda_rans._encode
+    for what, g, r in zip(("words", "counts"),
+                          enc_alone(syms, *tables, etb, eouts),
+                          (words, counts)):
+        require_equal(f"encode launched alone {what}", g, r)
     tb = cuda_rans.kernel_table(table, n, ctx_rows)
     launch = cuda_rans._decode_ctx if ctx_rows else cuda_rans._decode
     outs = tuple(torch.empty_like(o) for o in dec(words, x0, *tables, t))
@@ -713,8 +872,10 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
                           dec(words, x0, *tables, t)):
         require_equal(f"decode launched alone {what}", g, r)
     out = {
-        "enc_ms": cuda_ms(lambda: enc(syms, *tables), 20),
+        "enc_ms": kernel_ms(lambda: enc_alone(syms, *tables, etb, eouts)),
+        "enc_wrapper_ms": cuda_ms(lambda: enc(syms, *tables), 20),
         "enc_plain": cuda_ms(lambda: enc_plain(syms, *tables), 3),
+        "enc_instance": encode_instance(table, n, t, ctx_rows),
         "dec_ms": kernel_ms(lambda: launch(words, x0, *tables, t, tb, outs)),
         "dec_wrapper_ms": cuda_ms(lambda: dec(words, x0, *tables, t), 20),
         "dec_plain": cuda_ms(lambda: dec_plain(words, x0, *tables, t), 3),
@@ -722,6 +883,7 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
             n, table.shape[1], table.shape[0] if ctx_rows else None),
     }
     out["per_step_us"] = out["dec_ms"] * 1e3 / t
+    out["enc_per_step_us"] = out["enc_ms"] * 1e3 / t
     table_bytes = table.numel() * 4
     states = 4 * x0.numel()
     n_sym = syms.numel()
@@ -729,7 +891,11 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
                  + 2 * n_words + 4 * s)                    # words, counts
     dec_bytes = (2 * n_words + states + table_bytes + n_sym * ctx_bytes
                  + n_sym * sym_bytes + 4 * s + states)  # syms, consumed, x_fin
-    out["enc_bound"] = enc_bytes / PEAK_BYTES * 1e3
+    out["enc_byte_bound"] = enc_bytes / PEAK_BYTES * 1e3
+    out["enc_chain_bound"] = chain_bound_ms(t)
+    out["enc_bound"] = max(out["enc_byte_bound"], out["enc_chain_bound"])
+    out["enc_bound_by"] = bound_by(out["enc_byte_bound"],
+                                   out["enc_chain_bound"])
     out["dec_bound"] = dec_bytes / PEAK_BYTES * 1e3
     out["shape"] = f"S={s} t={t} N={n} L+1={table.shape[1]}"
     out["n_words"] = n_words
@@ -785,6 +951,7 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     s_img, lm = plan_streams(zx * zy)
     s, n = batch * s_img, lm * 192
     t = zx * zy // lm // s_img
+    s8, t8, n8 = s, t, n
     lane_cdf = lane_cdf_int8 = np.ascontiguousarray(_lane_cdf(cdfs, n),
                                                     np.int32)
     syms = torch.from_numpy(lane_symbols(rng, lane_cdf, s, t)).to(dev)
@@ -813,17 +980,30 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                     torch.from_numpy(ctx).to(dev)), t, n, 4, 4)
     # H at the int8 latent's shapes (the same symbols, as int32: the kernel
     # reads int32, so the wrapper's cast is not timed)
+    s, t, n = s8, t8, n8
     syms = torch.from_numpy(lane_symbols(rng, lane_cdf_int8, s, t)).to(dev)
     syms = syms.to(torch.int32)
     lc = torch.from_numpy(lane_cdf_int8).to(dev)
-    h = {"ms": cuda_ms(lambda: cuda_rans.encode_dense(syms, lc), 20),
+    hout = tuple(torch.empty_like(o) for o in cuda_rans.encode_dense(syms, lc))
+    for what, g, r in zip(("words", "flags", "final states"),
+                          cuda_rans._encode_dense(syms, lc, hout),
+                          cuda_rans.encode_dense(syms, lc)):
+        require_equal(f"kernel H launched alone {what}", g, r)
+    h = {"ms": kernel_ms(lambda: cuda_rans._encode_dense(syms, lc, hout)),
+         "wrapper_ms": cuda_ms(lambda: cuda_rans.encode_dense(syms, lc), 20),
          "plain": cuda_ms(lambda: cuda_rans.encode_dense_plain(syms, lc), 3),
-         "bound": (4 * syms.numel() + 4 * lc.numel()    # syms, table
-                   + 5 * syms.numel() + 4 * s * n)      # words, flags, x_fin
-         / PEAK_BYTES * 1e3}
-    log(f"kernel H S={s} t={t} N={n}: {h['ms']:.4f} ms (plain "
-        f"{h['plain']:.3f}, bound {h['bound']:.5f}); kernel B "
-        f"{bc['enc_ms']:.4f} ms at the same shape")
+         "byte_bound": (4 * syms.numel() + 4 * lc.numel()    # syms, table
+                        + 5 * syms.numel() + 4 * s * n)      # words, flags,
+         / PEAK_BYTES * 1e3,                                 # x_fin
+         "chain_bound": chain_bound_ms(t)}
+    h["bound"] = max(h["byte_bound"], h["chain_bound"])
+    h["bound_by"] = bound_by(h["byte_bound"], h["chain_bound"])
+    log(f"kernel H S={s} t={t} N={n}: {h['ms']:.4f} ms on the card "
+        f"({h['ms'] * 1e3 / t:.3f} us a step; wrapper {h['wrapper_ms']:.4f} "
+        f"ms a call, plain {h['plain']:.3f}, bound {h['bound']:.5f} "
+        f"({h['bound_by']}; bytes {h['byte_bound']:.5f}, chain "
+        f"{h['chain_bound']:.5f})); kernel B {bc['enc_ms']:.4f} ms at the "
+        f"same shape")
     # the global-memory instance of C, once, at an oversize lane table
     lane_big = np.ascontiguousarray(_lane_cdf(cdfs, 1024), np.int32)
     syms = torch.from_numpy(lane_symbols(rng, lane_big, 2, 96)).to(dev)
@@ -833,17 +1013,23 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                     (torch.from_numpy(lane_big).to(dev),), 96, 1024, 1, 0)
     for tag, r in (("B, C int8", bc), ("B, C z", bc_z), ("D, E y", de),
                    ("B, C oversize", big)):
-        log(f"kernels {tag} {r['shape']}: encode {r['enc_ms']:.4f} ms "
-            f"(wrapper, plain {r['enc_plain']:.3f}, bound "
-            f"{r['enc_bound']:.5f}), decode {r['dec_ms']:.4f} ms on the card "
-            f"({r['per_step_us']:.3f} us a step, {r['instance']} instance; "
-            f"wrapper {r['dec_wrapper_ms']:.4f} ms a call, plain "
+        log(f"kernels {tag} {r['shape']}: encode {r['enc_ms']:.4f} ms on the "
+            f"card ({r['enc_per_step_us']:.3f} us, "
+            f"{r['enc_per_step_us'] * BOOST_HZ / 1e6:.0f} cycles at the boost "
+            f"clock, a step; {r['enc_instance']} instance; wrapper "
+            f"{r['enc_wrapper_ms']:.4f} ms a call, plain {r['enc_plain']:.3f}, "
+            f"bound {r['enc_bound']:.5f} ({r['enc_bound_by']}; bytes "
+            f"{r['enc_byte_bound']:.5f}, chain {r['enc_chain_bound']:.5f})), "
+            f"decode {r['dec_ms']:.4f} ms on the "
+            f"card ({r['per_step_us']:.3f} us a step, {r['instance']} "
+            f"instance; wrapper {r['dec_wrapper_ms']:.4f} ms a call, plain "
             f"{r['dec_plain']:.3f}, bound {r['dec_bound']:.5f}); "
             f"{r['n_words']} words")
     for tag, r in (("int8 latent", bc), ("hyper z", bc_z), ("hyper y", de)):
-        if r["instance"] != "staged":
-            raise AssertionError(f"the decoder at the {tag} shape runs its "
-                                 f"{r['instance']} instance")
+        if r["instance"] != "staged" or r["enc_instance"] == "global":
+            raise AssertionError(f"at the {tag} shape the decoder runs its "
+                                 f"{r['instance']} instance, the encoder "
+                                 f"its {r['enc_instance']}")
 
     pkg = "simple_image_compression_network_tpu_torch/csrc/"
     ref = "simple_image_compression_network_tpu/"
@@ -873,15 +1059,25 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
     def z_shapes(r, kind):
         return {"shape": r["shape"], "ms": r[f"{kind}_ms"],
                 "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"],
-                **(decode_keys(r) if kind == "dec" else {})}
+                "bound_by": "bytes" if kind == "dec" else r["enc_bound_by"],
+                **(decode_keys(r) if kind == "dec" else encode_keys(r))}
 
     def decode_keys(r):
         return {"per_step_us": r["per_step_us"], "instance": r["instance"],
                 "wrapper_ms": r["dec_wrapper_ms"]}
+
+    def encode_keys(r):
+        return {"per_step_us": r["enc_per_step_us"],
+                "instance": r["enc_instance"],
+                "wrapper_ms": r["enc_wrapper_ms"],
+                "byte_bound_ms": r["enc_byte_bound"],
+                "chain_bound_ms": r["enc_chain_bound"]}
     dec_unit = ("ms on the card (CUDA events behind a spin kernel, a call "
                 "that launches the kernel alone); wrapper_ms: CUDA events "
                 "around the wrapper, host included")
-    enc_unit = "ms by CUDA events around the wrapper, host included"
+    enc_unit = (dec_unit + f"; bound_ms: the larger of the byte bound and "
+                f"the chain bound, t steps of {CHAIN_CYCLES} cycles at "
+                f"{BOOST_HZ / 1e9} GHz")
     a_path = {k: v for k, v in launches["conv3x3_s1_int8"].items()
               if k != "pallas"}
     return [
@@ -913,12 +1109,16 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
         entry("rans_encode_dense", "rans_encode.cu",
               "codec/pallas_rans.py:413", errs["rans_encode_dense"],
               h["ms"], h["plain"], h["bound"],
-              f"one launch, {bc['shape']} (int8 latent); {enc_unit}"),
+              f"one launch, {bc['shape']} (int8 latent); {enc_unit}",
+              by=h["bound_by"], per_step_us=h["ms"] * 1e3 / t,
+              wrapper_ms=h["wrapper_ms"], byte_bound_ms=h["byte_bound"],
+              chain_bound_ms=h["chain_bound"]),
         entry("rans_encode", "rans_encode.cu", "codec/pallas_rans.py:514",
               errs["rans_encode"], bc["enc_ms"], bc["enc_plain"],
               bc["enc_bound"],
               f"one launch, {bc['shape']} (int8 latent); {enc_unit}",
-              z_shapes=z_shapes(bc_z, "enc")),
+              by=bc["enc_bound_by"], z_shapes=z_shapes(bc_z, "enc"),
+              global_instance=z_shapes(big, "enc"), **encode_keys(bc)),
         entry("rans_decode", "rans_decode.cu", "codec/pallas_rans.py:121",
               errs["rans_decode"], bc["dec_ms"], bc["dec_plain"],
               bc["dec_bound"],
@@ -928,7 +1128,8 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
         entry("rans_encode_ctx", "rans_encode.cu",
               "codec/pallas_rans.py:549", errs["rans_encode_ctx"],
               de["enc_ms"], de["enc_plain"], de["enc_bound"],
-              f"one launch, {de['shape']} R=64 (hyper y); {enc_unit}"),
+              f"one launch, {de['shape']} R=64 (hyper y); {enc_unit}",
+              by=de["enc_bound_by"], **encode_keys(de)),
         entry("rans_decode_ctx", "rans_decode.cu",
               "codec/pallas_rans.py:275", errs["rans_decode_ctx"],
               de["dec_ms"], de["dec_plain"], de["dec_bound"],
@@ -1377,7 +1578,7 @@ def main() -> int:
 
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
-        check_decode_edges(rng, cdfs, dev, errs)
+        check_lane_edges(rng, cdfs, dev, errs)
         check_hyper_kernels(rng, codec, args.batch, dev, errs)
         check_layers(rng, args.batch, dev, errs)
         check_edges(rng, args.batch, dev, errs)

@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
-"""Time the port's rANS decode kernels C and E from one checkout, for A/B
-comparisons.
+"""Time the port's rANS kernels from one checkout, for A/B comparisons:
+the decoders C and E and the encoders B, D and H.
 
     python3 scripts/torch_rans_ab.py [ROOT]
 
 ROOT (default: this checkout) holds the package
 ``simple_image_compression_network_tpu_torch``; its kernels are built there.
-Prints the card's name and power limit, then for kernel C at the int8
+Prints the card's name and power limit, then for kernels C and B at the int8
 latent's shape (S = 16, t = 96, N = 384, rows of 130, the static latent
 CDFs) and at the hyper-latent z's (S = 2, t = 48, N = 256, rows of 129, the
-trained hyperprior's factorized CDFs), and kernel E at the hyper y shape
-(S = 16, t = 96, N = 384, 64 scale-bin rows of 257, uniform contexts): the
-kernel's device time and per step (CUDA events around 20 calls queued
-behind a spin kernel, after one warm-up, of a call that launches the
-kernel alone with its outputs and table layout made ahead: the private
-launcher ``cuda_rans._decode``/``_decode_ctx`` where ROOT has one, else
-ROOT's C entry point through ctypes) and the wrapper's time a call (CUDA
-events, mean of 50, host included).  The symbols, contexts and words are
-made from a fixed seed by ROOT's own encoder, and each decode is checked
-against the symbols.  To compare two checkouts, unpack the other one
-(``git archive``) into a directory that .gitignore lists and run both on
-one card, one after the other, in turns: other, this, this, other.  Needs
-a CUDA card and checkpoints/ under this checkout; imports torch and numpy.
+trained hyperprior's factorized CDFs), kernels E and D at the hyper y shape
+(S = 16, t = 96, N = 384, 64 scale-bin rows of 257, uniform contexts), and
+kernel H at the int8 latent's shape: the kernel's device time and per step
+(CUDA events around 20 calls queued behind a spin kernel, after one
+warm-up, of a call that launches the kernel alone with its outputs and
+table layout made ahead: the private launcher ``cuda_rans._decode``,
+``_decode_ctx``, ``_encode``, ``_encode_ctx`` or ``_encode_dense`` where
+ROOT has one, else ROOT's C entry point through ctypes) and the wrapper's
+time a call (CUDA events, mean of 50, host included).  The symbols and
+contexts are made from a fixed seed; each kernel launched alone is checked
+against its wrapper, each decode against the symbols.  To compare two
+checkouts, unpack the other one (``git archive``) into a directory that
+.gitignore lists and run both on one card, one after the other, in turns:
+other, this, this, other.  Needs a CUDA card and checkpoints/ under this
+checkout; imports torch and numpy.
 """
 
 from __future__ import annotations
@@ -160,16 +162,96 @@ def main() -> int:
               f"{card}]: kernel {k:.4f} ms ({k * 1e3 / t:.3f} us a step), "
               f"wrapper {w:.4f} ms a call", flush=True)
 
+    def encode_alone(tag, enc, args, outs, kernel, t):
+        """Time a call of an encode kernel alone (``kernel``, writing into
+        ``outs``) and its wrapper ``enc(*args)``; the two must agree."""
+        nonlocal ok
+        ref = enc(*args)
+        kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs, ref)):
+            print(f"{tag}: the kernel launched alone differs from the "
+                  f"wrapper")
+            ok = False
+        k = kernel_ms(kernel)
+        w = cuda_ms(lambda: enc(*args))
+        print(f"{tag} {tuple(args[0].shape)} [{root}, {card}]: kernel "
+              f"{k:.4f} ms ({k * 1e3 / t:.3f} us a step), wrapper {w:.4f} "
+              f"ms a call", flush=True)
+
+    def encode_b(tag, syms, lc):
+        s, t, n = syms.shape
+        if hasattr(cuda_rans, "_encode"):
+            tb = cuda_rans.encode_kernel_table(lc, n, t, False)
+            outs = cuda_rans._encode_outputs(s, t, n, tb[1], dev)
+
+            def kernel():
+                cuda_rans._encode(syms, lc, tb, outs)
+        else:
+            outs = (torch.zeros((s, 2 * n + t * n), dtype=torch.int16,
+                                device=dev),
+                    torch.empty((s,), dtype=torch.int32, device=dev),
+                    torch.empty((s, t, n), dtype=torch.int32, device=dev))
+
+            def kernel():
+                _build.check(lib.sicn_rans_encode(
+                    syms.data_ptr(), lc.data_ptr(), outs[2].data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), s, t, n,
+                    lc.shape[1], outs[0].shape[1], stream), "rans encode")
+        encode_alone(tag, cuda_rans.encode_batch_compact, (syms, lc),
+                     outs[:2], kernel, t)
+
+    def encode_d(tag, syms, yt, ctx):
+        s, t, n = syms.shape
+        if hasattr(cuda_rans, "_encode_ctx"):
+            tb = cuda_rans.encode_kernel_table(yt, n, t, True)
+            outs = cuda_rans._encode_outputs(s, t, n, tb[1], dev)
+
+            def kernel():
+                cuda_rans._encode_ctx(syms, yt, ctx, tb, outs)
+        else:
+            outs = (torch.zeros((s, 2 * n + t * n), dtype=torch.int16,
+                                device=dev),
+                    torch.empty((s,), dtype=torch.int32, device=dev),
+                    torch.empty((s, t, n), dtype=torch.int32, device=dev))
+
+            def kernel():
+                _build.check(lib.sicn_rans_encode_ctx(
+                    syms.data_ptr(), ctx.data_ptr(), yt.data_ptr(),
+                    outs[2].data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr(), s, t, n, yt.shape[0], yt.shape[1],
+                    outs[0].shape[1], stream), "rans encode ctx")
+        encode_alone(tag, cuda_rans.encode_batch_compact_ctx,
+                     (syms, yt, ctx), outs[:2], kernel, t)
+
+    def encode_h(tag, syms, lc):
+        s, t, n = syms.shape
+        outs = tuple(torch.empty_like(o)
+                     for o in cuda_rans.encode_dense(syms, lc))
+        if hasattr(cuda_rans, "_encode_dense"):
+            def kernel():
+                cuda_rans._encode_dense(syms, lc, outs)
+        else:
+            def kernel():
+                _build.check(lib.sicn_rans_encode_dense(
+                    syms.data_ptr(), lc.data_ptr(),
+                    *[o.data_ptr() for o in outs], s, t, n, lc.shape[1],
+                    stream), "rans encode dense")
+        encode_alone(tag, cuda_rans.encode_dense, (syms, lc), outs, kernel,
+                     t)
+
+    lane_cases = []
     for tag, table, s, t in (
-            ("kernel C, int8 latent", _lane_cdf(cdfs, 384), 16, 96),
-            ("kernel C, hyper z",
+            ("int8 latent", _lane_cdf(cdfs, 384), 16, 96),
+            ("hyper z",
              codec.z_cdfs[np.arange(256) % codec.z_cdfs.shape[0]], 2, 48)):
         table = np.ascontiguousarray(table, np.int32)
         syms = torch.from_numpy(lane_syms(rng, table, s, t)).to(dev)
         lc = torch.from_numpy(table).to(dev)
+        lane_cases.append((tag, syms, lc))
         words, _ = cuda_rans.encode_batch_compact(syms, lc)
-        run(tag, words, cuda_rans.split_init(words, table.shape[0]), lc,
-            None, syms, t)
+        run(f"kernel C, {tag}", words,
+            cuda_rans.split_init(words, table.shape[0]), lc, None, syms, t)
     y_table = np.ascontiguousarray(codec.y_cdfs_dev, np.int32)
     s, t, n = 16, 96, 384
     ctx = rng.integers(0, y_table.shape[0], size=(s, t, n)).astype(np.int32)
@@ -181,6 +263,11 @@ def main() -> int:
     words, _ = cuda_rans.encode_batch_compact_ctx(syms_d, yt, ctx_d)
     run("kernel E, hyper y", words, cuda_rans.split_init(words, n), yt,
         ctx_d, syms_d, t)
+    for tag, syms_b, lc in lane_cases:
+        encode_b(f"kernel B, {tag}", syms_b, lc)
+    encode_d("kernel D, hyper y", syms_d, yt, ctx_d)
+    tag, syms_b, lc = lane_cases[0]
+    encode_h(f"kernel H, {tag}", syms_b.to(torch.int32), lc)
     return 0 if ok else 1
 
 

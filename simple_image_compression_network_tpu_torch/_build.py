@@ -36,10 +36,10 @@ _SIGNATURES = {
                              _I, _I, _I, _P],
     "sicn_conv_sparse_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sicn_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sicn_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_encode_ctx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P],
+                             _I, _I, _P],
     "sicn_rans_encode_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sicn_rans_decode_ctx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],

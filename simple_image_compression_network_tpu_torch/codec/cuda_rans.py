@@ -19,9 +19,13 @@ tensors the wrappers launch the hand-written kernels of
 ``csrc/rans_encode.cu`` and ``csrc/rans_decode.cu``; on CPU tensors they
 run the plain versions built on ``codec/device_rans.py``.  Each wrapper
 counts its kernel launches (``.launches``) and its plain runs
-(``.plain_runs``).  C and E search their table in shared memory where it
-fits (``decode_staged_fits``), in a layout made once per table
-(``kernel_table``), and in global memory otherwise.
+(``.plain_runs``).  The kernels keep their table in shared memory where it
+fits (``encode_staged_fits``, ``decode_staged_fits``), in a layout made
+once per table tensor (``encode_kernel_table``, ``kernel_table``), and
+read it in global memory otherwise.  The private launchers ``_encode``,
+``_encode_ctx``, ``_encode_dense``, ``_decode`` and ``_decode_ctx`` take
+what they can be given ahead (the table layout, the outputs), so that a
+call launches the kernel and nothing else.
 
 u16 stream words travel as int16 tensors holding the bit patterns; u32
 states as int32 tensors.  CDF precision is 16 (the codec's only setting).
@@ -55,13 +59,6 @@ def _cuda_ready(*tensors: torch.Tensor) -> None:
         raise ValueError("the rANS kernels take contiguous tensors")
 
 
-def encode_batch_compact_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of kernel B (``device_rans.encode``)."""
-    words, counts = device_rans.encode(syms, lane_cdf)
-    return words.to(torch.int16), counts.to(torch.int32)
-
-
 def _check_ctx_table(table: torch.Tensor, ctx: torch.Tensor,
                      shape, device) -> None:
     if table.dim() != 2 or table.dtype != torch.int32:
@@ -72,6 +69,210 @@ def _check_ctx_table(table: torch.Tensor, ctx: torch.Tensor,
                          f"{tuple(ctx.shape)} {ctx.dtype}")
     if table.device != device or ctx.device != device:
         raise ValueError("table and ctx must be on the symbols' device")
+
+
+# --- table layouts, shared by the encoders and the decoders ----------------
+# A kernel that stages its table copies it into shared memory as it lies in
+# the layout below, made once per table tensor (``_layout``).
+
+SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
+
+
+def _npad(n_lanes: int) -> int:
+    return -(-n_lanes // 32) * 32
+
+
+def _staged_ints(n_lanes: int, l1: int, n_rows: Optional[int]) -> int:
+    """int32 entries of the staged table: kernel C's (L+1, npad), or kernel
+    E's ``n_rows`` rows of pitch (L+1) | 1, rounded up to 4 entries."""
+    if n_rows is None:
+        return l1 * _npad(n_lanes)
+    return -(-n_rows * (l1 | 1) // 4) * 4
+
+
+def stage_lane_table(lane_cdf: torch.Tensor) -> torch.Tensor:
+    """(N, L+1) lane table -> kernel C's staged layout, flat: entry j of
+    lane k at j * npad + k, lanes past N zero."""
+    n, l1 = lane_cdf.shape
+    out = lane_cdf.new_zeros((l1, _npad(n)))
+    out[:, :n] = lane_cdf.t()
+    return out.reshape(-1)
+
+
+def stage_ctx_table(table: torch.Tensor) -> torch.Tensor:
+    """(R, L+1) shared table -> kernel E's staged layout, flat: row r at
+    r * pitch, pitch = (L+1) | 1, zero-padded to a multiple of 4."""
+    r, l1 = table.shape
+    out = table.new_zeros(_staged_ints(0, l1, r))
+    out[: r * (l1 | 1)].view(r, l1 | 1)[:, :l1] = table
+    return out
+
+
+def stage_lane_table_u16(lane_cdf: torch.Tensor) -> Optional[torch.Tensor]:
+    """(N, L+1) lane table -> kernel B's u16 layout, flat int16 (the u16
+    bit patterns): entry j of lane k at j * npad + k, lanes past N zero,
+    2^16 stored as 0.  For a symbol of freq >= 1 its start lies below 2^16
+    and is exact, and the kernel's freq, ((end - start - 1) & 0xFFFF) + 1,
+    is exact too, wherever else 2^16 appears in the row; a symbol of freq
+    0 cannot be coded at all.  None where an entry lies outside [0, 2^16]
+    or a last entry is not 2^16."""
+    n, l1 = lane_cdf.shape
+    if not bool(((lane_cdf >= 0) & (lane_cdf <= 65536)).all()
+                & (lane_cdf[:, -1] == 65536).all()):
+        return None
+    out = lane_cdf.new_zeros((l1, _npad(n)))
+    out[:, :n] = lane_cdf.t() & 0xFFFF
+    return (out - (out >= 32768).to(out.dtype) * 65536).to(
+        torch.int16).reshape(-1)
+
+
+_layouts: Dict[Tuple[int, str], tuple] = {}
+
+
+def _layout(table: torch.Tensor, kind: str, make) -> Optional[torch.Tensor]:
+    """``make(table)``, kept per (table tensor, ``kind``) while that tensor
+    lives and is not written to (its version counter); made anew for an
+    inference tensor, which has no version counter."""
+    key = (id(table), kind)
+    try:
+        version = table._version
+    except RuntimeError:          # an inference tensor: no version counter
+        version = None
+    hit = _layouts.get(key)
+    if (hit is not None and version is not None and hit[0]() is table
+            and hit[1] == version):
+        return hit[2]
+    out = make(table)
+    if version is not None:
+        _layouts[key] = (weakref.ref(table, lambda _, k=key: _layouts.pop(
+            k, None)), version, out)
+    return out
+
+
+# --- encode (kernels B and D) ----------------------------------------------
+# Kernel B or D keeps its table (B's as u16, D's in kernel E's row layout), a
+# u16 slot for every step's candidate word and a (mask, offset) pair of
+# int32 for every (step, warp) in shared memory where they fit one block's
+# share; else its global instance reads the table in global memory and
+# keeps slots and pairs in a scratch buffer.  The byte counts below are
+# those of ``launch`` in csrc/rans_encode.cu.
+
+# the encode kernels' table modes: global (B, D), u16 (B), staged (D)
+ENC_GLOBAL, ENC_U16, ENC_STAGED = 0, 1, 2
+_SCAN_BYTES = 128                           # one word count per warp
+_STAGED_THREADS = 512                       # lanes a staged instance takes
+
+
+def encode_slot_bytes(n_lanes: int, t_steps: int) -> int:
+    """Bytes of one stream's word slots (2 a step and lane) and (mask,
+    offset) pairs (8 a step and warp)."""
+    npad = _npad(n_lanes)
+    return 2 * t_steps * npad + 8 * t_steps * (npad // 32)
+
+
+def encode_table_bytes(n_lanes: int, l1: int,
+                       n_rows: Optional[int] = None) -> int:
+    """Bytes of the staged table: kernel B's (L+1, npad) u16 layout, or
+    kernel D's ``n_rows`` rows of pitch (L+1) | 1 (kernel E's layout)."""
+    if n_rows is None:
+        return 2 * l1 * _npad(n_lanes)
+    return 4 * _staged_ints(n_lanes, l1, n_rows)
+
+
+def encode_staged_fits(n_lanes: int, t_steps: int, l1: int,
+                       n_rows: Optional[int] = None) -> bool:
+    """Whether kernel B (``n_rows`` None) or D (a table of ``n_rows``
+    rows) can run its staged instance at this shape: at most 512 lanes,
+    and the table, the slots, the pairs and 128 bytes of warp counts must
+    fit ``SMEM_LIMIT``.  B at the int8 latent (N = 384, t = 96, L+1 = 130)
+    takes 182,912 bytes, B at z (256, 48, 129) 93,824, D at hyper y (384,
+    96, R = 64, 257) 148,864; the latent of a 3840x2160 frame (t = 2,025
+    at N = 384) has 1.75 MB of slots and pairs and runs the global
+    instance."""
+    return _npad(n_lanes) <= _STAGED_THREADS and (
+        _SCAN_BYTES + encode_table_bytes(n_lanes, l1, n_rows)
+        + encode_slot_bytes(n_lanes, t_steps)) <= SMEM_LIMIT
+
+
+def encode_kernel_table(table: torch.Tensor, n_lanes: int, t_steps: int,
+                        ctx_rows: bool) -> Tuple[torch.Tensor, int]:
+    """(the table as kernel B or D reads it, its mode) for ``n_lanes``
+    lanes of ``t_steps`` steps.  B (``ctx_rows`` False, the (N, L+1) lane
+    table): the u16 layout (``ENC_U16``) where it fits and the table allows
+    it (``stage_lane_table_u16``); D (the (R, L+1) shared table): kernel
+    E's row layout (``ENC_STAGED``) where it fits.  Else the table itself
+    (``ENC_GLOBAL``).  Layouts are made once per table tensor."""
+    rows, l1 = table.shape
+    if ctx_rows:
+        if encode_staged_fits(n_lanes, t_steps, l1, rows):
+            return _layout(table, "ctx", stage_ctx_table), ENC_STAGED
+        return table, ENC_GLOBAL
+    if encode_staged_fits(n_lanes, t_steps, l1):
+        tb = _layout(table, "lane_u16", stage_lane_table_u16)
+        if tb is not None:
+            return tb, ENC_U16
+    return table, ENC_GLOBAL
+
+
+def _check_encode_table(tb: Tuple[torch.Tensor, int], table: torch.Tensor,
+                        n_lanes: int, t_steps: int, ctx_rows: bool) -> None:
+    """``tb`` made ahead must be a layout of a mode that this shape may run,
+    of that layout's shape and type, 16-byte aligned on the table's
+    device."""
+    layout, mode = tb
+    rows, l1 = table.shape
+    if mode == ENC_GLOBAL:
+        ok = layout.shape == table.shape and layout.dtype == torch.int32
+    elif mode == ENC_U16 and not ctx_rows:
+        ok = (encode_staged_fits(n_lanes, t_steps, l1)
+              and tuple(layout.shape) == (l1 * _npad(n_lanes),)
+              and layout.dtype == torch.int16)
+    elif mode == ENC_STAGED and ctx_rows:
+        ok = (encode_staged_fits(n_lanes, t_steps, l1, rows)
+              and tuple(layout.shape) == (_staged_ints(n_lanes, l1, rows),)
+              and layout.dtype == torch.int32)
+    else:
+        ok = False
+    if (not ok or layout.device != table.device
+            or not layout.is_contiguous() or layout.data_ptr() % 16):
+        raise ValueError(f"encode table {tuple(layout.shape)} "
+                         f"{layout.dtype} in mode {mode} does not fit this "
+                         f"table")
+
+
+def _encode_outputs(s: int, t_steps: int, n: int, mode: int, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """(words (S, 2N + t*N) int16, counts (S,) int32, and for the global
+    instance its scratch of slots and pairs) for ``_encode``/``_encode_ctx``:
+    the kernel writes every word, the zero tail too."""
+    scratch = (torch.empty((s * encode_slot_bytes(n, t_steps),),
+                           dtype=torch.uint8, device=device)
+               if mode == ENC_GLOBAL else None)
+    return (torch.empty((s, 2 * n + t_steps * n), dtype=torch.int16,
+                        device=device),
+            torch.empty((s,), dtype=torch.int32, device=device), scratch)
+
+
+def _check_encode_outputs(out, s: int, t_steps: int, n: int, mode: int,
+                          device) -> None:
+    words, counts, scratch = out
+    if (words.shape != (s, 2 * n + t_steps * n) or words.dtype != torch.int16
+            or counts.shape != (s,) or counts.dtype != torch.int32
+            or words.device != device or counts.device != device
+            or not words.is_contiguous() or words.data_ptr() % 16
+            or (mode == ENC_GLOBAL and (
+                scratch is None or scratch.device != device
+                or scratch.numel() * scratch.element_size()
+                < s * encode_slot_bytes(n, t_steps)))):
+        raise ValueError("encode outputs do not fit this call")
+
+
+def encode_batch_compact_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B (``device_rans.encode``)."""
+    words, counts = device_rans.encode(syms, lane_cdf)
+    return words.to(torch.int16), counts.to(torch.int32)
 
 
 def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor,
@@ -88,6 +289,15 @@ def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor,
     case, so no stream can overflow it."""
     if ctx is not None:
         return encode_batch_compact_ctx(syms, lane_cdf, ctx)
+    return _encode(syms, lane_cdf)
+
+
+def _encode(syms: torch.Tensor, lane_cdf: torch.Tensor,
+            tb: Optional[Tuple[torch.Tensor, int]] = None, out=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encode_batch_compact`` without ctx, with ``tb``,
+    ``encode_kernel_table(lane_cdf, N, t, False)``, and ``out``,
+    ``_encode_outputs(...)``, made ahead (or None to make them here)."""
     if syms.dim() != 3 or syms.dtype != torch.int8:
         raise ValueError("syms must be (S, t, N) int8")
     s, t_steps, n = syms.shape
@@ -96,17 +306,24 @@ def encode_batch_compact(syms: torch.Tensor, lane_cdf: torch.Tensor,
         encode_batch_compact.plain_runs += 1
         return encode_batch_compact_plain(syms, lane_cdf)
     _cuda_ready(syms, lane_cdf)
-    width = 2 * n + t_steps * n
-    words = torch.zeros((s, width), dtype=torch.int16, device=syms.device)
-    counts = torch.empty((s,), dtype=torch.int32, device=syms.device)
-    scratch = torch.empty((s, t_steps, n), dtype=torch.int32,
-                          device=syms.device)
+    if tb is None:
+        tb = encode_kernel_table(lane_cdf, n, t_steps, False)
+    else:
+        _check_encode_table(tb, lane_cdf, n, t_steps, False)
+    layout, mode = tb
+    if out is None:
+        out = _encode_outputs(s, t_steps, n, mode, syms.device)
+    else:
+        _check_encode_outputs(out, s, t_steps, n, mode, syms.device)
+    words, counts, scratch = out
     lib = _build.lib()
     with torch.cuda.device(syms.device):
         err = lib.sicn_rans_encode(
-            syms.data_ptr(), lane_cdf.data_ptr(), scratch.data_ptr(),
+            syms.data_ptr(), layout.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             words.data_ptr(), counts.data_ptr(), s, t_steps, n,
-            lane_cdf.shape[1], width, torch.cuda.current_stream().cuda_stream)
+            lane_cdf.shape[1], words.shape[1], mode,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans encode")
     encode_batch_compact.launches += 1
     return words, counts
@@ -132,6 +349,15 @@ def encode_batch_compact_ctx(syms: torch.Tensor, table: torch.Tensor,
     syms: (S, t, N) int32 symbols in [0, L); ctx: (S, t, N) int32 row
     indices in [0, R); table: (R, L+1) int32 shared CDF table.  Returns
     the words/counts layout of ``encode_batch_compact``."""
+    return _encode_ctx(syms, table, ctx)
+
+
+def _encode_ctx(syms: torch.Tensor, table: torch.Tensor, ctx: torch.Tensor,
+                tb: Optional[Tuple[torch.Tensor, int]] = None, out=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encode_batch_compact_ctx`` with ``tb``, ``encode_kernel_table(
+    table, N, t, True)``, and ``out`` made ahead (or None to make them
+    here)."""
     if syms.dim() != 3 or syms.dtype != torch.int32:
         raise ValueError("syms must be (S, t, N) int32")
     s, t_steps, n = syms.shape
@@ -140,17 +366,24 @@ def encode_batch_compact_ctx(syms: torch.Tensor, table: torch.Tensor,
         encode_batch_compact_ctx.plain_runs += 1
         return encode_batch_compact_ctx_plain(syms, table, ctx)
     _cuda_ready(syms, ctx, table)
-    width = 2 * n + t_steps * n
-    words = torch.zeros((s, width), dtype=torch.int16, device=syms.device)
-    counts = torch.empty((s,), dtype=torch.int32, device=syms.device)
-    scratch = torch.empty((s, t_steps, n), dtype=torch.int32,
-                          device=syms.device)
+    r, l1 = table.shape
+    if tb is None:
+        tb = encode_kernel_table(table, n, t_steps, True)
+    else:
+        _check_encode_table(tb, table, n, t_steps, True)
+    layout, mode = tb
+    if out is None:
+        out = _encode_outputs(s, t_steps, n, mode, syms.device)
+    else:
+        _check_encode_outputs(out, s, t_steps, n, mode, syms.device)
+    words, counts, scratch = out
     lib = _build.lib()
     with torch.cuda.device(syms.device):
         err = lib.sicn_rans_encode_ctx(
-            syms.data_ptr(), ctx.data_ptr(), table.data_ptr(),
-            scratch.data_ptr(), words.data_ptr(), counts.data_ptr(), s,
-            t_steps, n, table.shape[0], table.shape[1], width,
+            syms.data_ptr(), ctx.data_ptr(), layout.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            words.data_ptr(), counts.data_ptr(), s, t_steps, n, r, l1,
+            l1 if mode == ENC_GLOBAL else (l1 | 1), words.shape[1], mode,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans encode ctx")
     encode_batch_compact_ctx.launches += 1
@@ -176,6 +409,14 @@ def encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor
     int32 CDF row per lane.  Returns (emits (S, t, N) int32, the candidate
     word x & 0xFFFF of every step; needs (S, t, N) bool, whether it is
     emitted; x_fin (S, N) int32 final states, u32 bits)."""
+    return _encode_dense(syms, lane_cdf)
+
+
+def _encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor, out=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``encode_dense`` with ``out``, (emits, needs, x_fin), made ahead (or
+    None to make them here).  The kernel reads int32 symbols: int8 ones
+    are cast first."""
     if syms.dim() != 3 or syms.dtype not in (torch.int8, torch.int32):
         raise ValueError("syms must be (S, t, N) int8 or int32")
     s, t_steps, n = syms.shape
@@ -185,11 +426,19 @@ def encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor
         return encode_dense_plain(syms, lane_cdf)
     syms = syms.to(torch.int32)
     _cuda_ready(syms, lane_cdf)
-    emits = torch.empty((s, t_steps, n), dtype=torch.int32,
-                        device=syms.device)
-    needs = torch.empty((s, t_steps, n), dtype=torch.bool,
-                        device=syms.device)
-    x_fin = torch.empty((s, n), dtype=torch.int32, device=syms.device)
+    if out is None:
+        out = (torch.empty((s, t_steps, n), dtype=torch.int32,
+                           device=syms.device),
+               torch.empty((s, t_steps, n), dtype=torch.bool,
+                           device=syms.device),
+               torch.empty((s, n), dtype=torch.int32, device=syms.device))
+    elif (out[0].shape != syms.shape or out[0].dtype != torch.int32
+          or out[1].shape != syms.shape or out[1].dtype != torch.bool
+          or out[2].shape != (s, n) or out[2].dtype != torch.int32
+          or not all(o.is_contiguous() and o.device == syms.device
+                     for o in out)):
+        raise ValueError("encode_dense outputs do not fit this call")
+    emits, needs, x_fin = out
     lib = _build.lib()
     with torch.cuda.device(syms.device):
         err = lib.sicn_rans_encode_dense(
@@ -198,7 +447,7 @@ def encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor
             lane_cdf.shape[1], torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans encode dense")
     encode_dense.launches += 1
-    return emits, needs, x_fin
+    return out
 
 
 encode_dense.launches = 0
@@ -232,12 +481,7 @@ def split_init(words: torch.Tensor, n_lanes: int) -> torch.Tensor:
 # instance searches the table in global memory.  The byte counts below are
 # those of ``launch`` in csrc/rans_decode.cu.
 
-SMEM_LIMIT = 232448    # bytes of shared memory one block may use on sm_90
 _TOTALS_BYTES = 256    # two buffers of 32 warp counts
-
-
-def _npad(n_lanes: int) -> int:
-    return -(-n_lanes // 32) * 32
 
 
 def _ring_words(npad: int) -> int:
@@ -246,14 +490,6 @@ def _ring_words(npad: int) -> int:
     while r < 3 * npad:
         r <<= 1
     return r
-
-
-def _staged_ints(n_lanes: int, l1: int, n_rows: Optional[int]) -> int:
-    """int32 entries of the staged table: kernel C's (L+1, npad), or kernel
-    E's ``n_rows`` rows of pitch (L+1) | 1, rounded up to 4 entries."""
-    if n_rows is None:
-        return l1 * _npad(n_lanes)
-    return -(-n_rows * (l1 | 1) // 4) * 4
 
 
 def decode_staged_fits(n_lanes: int, l1: int,
@@ -269,27 +505,6 @@ def decode_staged_fits(n_lanes: int, l1: int,
             + 2 * _ring_words(_npad(n_lanes)) + _TOTALS_BYTES) <= SMEM_LIMIT
 
 
-def stage_lane_table(lane_cdf: torch.Tensor) -> torch.Tensor:
-    """(N, L+1) lane table -> kernel C's staged layout, flat: entry j of
-    lane k at j * npad + k, lanes past N zero."""
-    n, l1 = lane_cdf.shape
-    out = lane_cdf.new_zeros((l1, _npad(n)))
-    out[:, :n] = lane_cdf.t()
-    return out.reshape(-1)
-
-
-def stage_ctx_table(table: torch.Tensor) -> torch.Tensor:
-    """(R, L+1) shared table -> kernel E's staged layout, flat: row r at
-    r * pitch, pitch = (L+1) | 1, zero-padded to a multiple of 4."""
-    r, l1 = table.shape
-    out = table.new_zeros(_staged_ints(0, l1, r))
-    out[: r * (l1 | 1)].view(r, l1 | 1)[:, :l1] = table
-    return out
-
-
-_staged: Dict[Tuple[int, bool], tuple] = {}
-
-
 def kernel_table(table: torch.Tensor, n_lanes: int,
                  ctx_rows: bool) -> torch.Tensor:
     """The table as kernel C (``ctx_rows`` False: the (N, L+1) lane table)
@@ -300,20 +515,9 @@ def kernel_table(table: torch.Tensor, n_lanes: int,
     rows, l1 = table.shape
     if not decode_staged_fits(n_lanes, l1, rows if ctx_rows else None):
         return table
-    key = (id(table), ctx_rows)
-    try:
-        version = table._version
-    except RuntimeError:          # an inference tensor: no version counter
-        version = None
-    hit = _staged.get(key)
-    if (hit is not None and version is not None and hit[0]() is table
-            and hit[1] == version):
-        return hit[2]
-    out = (stage_ctx_table if ctx_rows else stage_lane_table)(table)
-    if version is not None:
-        _staged[key] = (weakref.ref(table, lambda _, k=key: _staged.pop(
-            k, None)), version, out)
-    return out
+    if ctx_rows:
+        return _layout(table, "ctx", stage_ctx_table)
+    return _layout(table, "lane", stage_lane_table)
 
 
 def decode_plain(words: torch.Tensor, x0: torch.Tensor,
