@@ -23,7 +23,14 @@ paths at full width on B random-seeded 768x512 images:
   equal to the compact encoder's words;
 * the scale-hyperprior codec's ``compress_batch`` then ``decompress_batch``
   with the trained ``checkpoints/hp_scale_l0.01.params.msgpack`` (N = 128,
-  M = 192), checked for y_hat and z_hat equal to the encoder's integers.
+  M = 192), checked for y_hat and z_hat equal to the encoder's integers;
+* ``DeviceChain``: the int8 chain's encode, decode and roundtrip captured
+  as CUDA graphs and replayed, checked for ``exact``, ``check()`` and
+  x_hat against the golden, with the launches made at capture, and each
+  program timed eagerly and replayed;
+* the four pipelines over 4 batches of B images at depth 2, equal to the
+  sync calls, timed against them, each ``submit`` shown to wait on no
+  queued device work.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -143,6 +150,24 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(fn, iters: int) -> tuple:
+    """(the host's time in fn(), and its time to a synchronize after it):
+    medians over iters calls, each started on an idle card after one
+    warm-up call (host clock)."""
+    fn()
+    host, wall = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+    return float(np.median(host)), float(np.median(wall))
 
 
 def kernel_ms(fn, iters: int = 20) -> float:
@@ -1480,6 +1505,276 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
     return counts
 
 
+def chain_path(batch: int, golden: dict, card: str) -> dict:
+    """``DeviceChain`` at 768x512: built (one eager run of each program,
+    then its capture as a CUDA graph) with the launch counts read around
+    the build and around each capture; replayed with no counter ticking;
+    ``exact`` and ``check()`` true, x_hat equal to the float64 golden, the
+    words and counts equal to kernel B's over the golden latent, both
+    checksums as the golden gives them.  Then each program's device time
+    run eagerly and replayed (CUDA events, mean of 10 calls back to back:
+    their difference is the device's idle time under eager launch), and
+    the host's time to launch each, one synchronized call at a time.
+    Returns the build's counts."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        cuda_rans, device_chain)
+    from simple_image_compression_network_tpu_torch.codec.int_codec import (
+        _lane_cdf_tensor)
+    from torch.profiler import ProfilerActivity, profile
+    net, cdfs, x = golden["net"], golden["cdfs"], golden["x"]
+    reset_counts()
+    chain = device_chain.DeviceChain(net, cdfs, x)
+    torch.cuda.synchronize()
+    # one sizing encode (A 4, B 1), then each program eagerly and captured
+    built = read_exact("device chain build", {
+        "conv3x3_s1_int8": 4 + 2 * (4 + 4 + 8), "rans_encode": 1 + 2 * 2,
+        "rans_decode": 2 * 2})
+    per_graph = {"encode": {"conv3x3_s1_int8": 4, "rans_encode": 1,
+                            "rans_decode": 0},
+                 "decode": {"conv3x3_s1_int8": 4, "rans_encode": 0,
+                            "rans_decode": 1},
+                 "roundtrip": {"conv3x3_s1_int8": 8, "rans_encode": 1,
+                               "rans_decode": 1}}
+    log(f"device chain: captured {sorted(chain._graphs)}, launches at "
+        f"capture {chain.graph_launches}, mxb {chain.mxb} of "
+        f"{chain._words.shape[1]} words")
+    if chain.graph_launches != per_graph or sorted(chain._graphs) != sorted(
+            per_graph):
+        raise AssertionError(f"the chain's graphs captured "
+                             f"{chain.graph_launches}, expected {per_graph}")
+
+    reset_counts()
+    csum, exact = chain.roundtrip(x)
+    w, cnt, esum = chain.encode(x)
+    x_hat, dsum = chain.decode(w, cnt)
+    torch.cuda.synchronize()
+    read_exact("device chain replay", {"conv3x3_s1_int8": 0,
+                                       "rans_encode": 0, "rans_decode": 0})
+    if not bool(exact):
+        raise AssertionError("device chain: exact is false (z_hat != z or "
+                             "a stream failed its check)")
+    require_equal("device chain x_hat == golden", x_hat, golden["x_ref"])
+    z = golden["z_ref"]
+    wb, cb = cuda_rans.encode_batch_compact(
+        z.reshape(z.shape[0] * chain.s, chain.t_steps, chain.n_lanes),
+        _lane_cdf_tensor(cdfs, chain.n_lanes, z.device))
+    require_equal("device chain counts == kernel B's on the golden latent",
+                  cnt, cb)
+    require_equal("device chain words == kernel B's on the golden latent",
+                  w, wb)
+    x_sum = int(golden["x_ref"].to(torch.int64).sum())
+    got = (int(esum), int(dsum), int(csum))
+    want = (int(cb.sum()), x_sum + 1, x_sum)
+    if got != want:
+        raise AssertionError(f"device chain checksums {got}, expected {want}")
+    checked = chain.check(x)
+    if checked != (True, True):
+        raise AssertionError(f"device chain check() gave {checked}")
+    log(f"device chain: exact True, check() {checked}, x_hat == golden, "
+        f"words and counts == kernel B's, checksums {got} as expected; "
+        f"replays ran no eager launch")
+
+    mp = batch * H * W / 1e3          # megapixels per ms -> MP/s
+    for name in device_chain.PROGRAMS:
+        body, graph = getattr(chain, f"_{name}_body"), chain._graphs[name]
+        eager = cuda_ms(body, 10)
+        replay = cuda_ms(graph.replay, 10)
+        e_host, e_wall = launch_ms(body, 10)
+        r_host, r_wall = launch_ms(graph.replay, 10)
+        log(f"device chain [{card}]: {name} eager {eager:.4f} ms, replay "
+            f"{replay:.4f} ms (CUDA events, 10 calls back to back), device "
+            f"idle under eager launch {eager - replay:.4f} ms; replay "
+            f"{mp / replay:.1f} MP/s")
+        log(f"device chain [{card}]: {name} one call at a time (host clock, "
+            f"median of 10): the host's launch cost eager {e_host:.4f} ms, "
+            f"replay {r_host:.4f} ms; to the synchronize eager {e_wall:.4f} "
+            f"ms, replay {r_wall:.4f} ms")
+    public = host_ms(lambda: chain.roundtrip(x)[1].item(), 10)
+    log(f"device chain [{card}]: roundtrip(x) and its flag read on the host "
+        f"{public:.4f} ms (host clock, mean of 10)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain._graphs["roundtrip"].replay()
+        torch.cuda.synchronize()
+    log("device chain: kernels of one roundtrip replay (torch.profiler, a "
+        "report, not a gate):")
+    log(prof.key_averages().table(sort_by="device_time_total", row_limit=12,
+                                  max_name_column_width=60))
+    return built
+
+
+N_PIPE = 4          # batches through each pipeline
+PIPE_DEPTH = 2
+PIPE_TURNS = 7      # alternating sync and pipelined runs of each pipeline
+SPIN_CYCLES = 1 << 27   # ~70 ms of queued device work at the boost clock
+
+
+def wall_ms(fn) -> tuple:
+    """(host-clock ms of fn() up to a synchronize after it, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def pipelines_path(seed: int, batch: int, golden: dict, codec,
+                   card: str) -> dict:
+    """``N_PIPE`` batches of B 768x512 images through each pipeline at depth
+    ``PIPE_DEPTH``, with the launch counts read right after the int8 and the
+    hyper pipelines; every result equal to the sync calls'; wall time of
+    each against the sync calls over the same batches (in turns sync,
+    pipelined, ``PIPE_TURNS`` times; every turn printed, and the medians
+    compared), and the host's time a
+    batch in each pipeline's phases; each ``submit`` must return with a
+    spin kernel queued before it still running.  Then the hyper
+    containers of all batches decoded one by one and as one batch, against
+    the B-image decodes: reported, not gated.  Returns the counts."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        device_rans, int_codec, pipeline)
+    net, cdfs = golden["net"], golden["cdfs"]
+    dev = golden["x"].device
+    xs = [torch.from_numpy(make_images(seed + 10 + k, batch)).to(dev)
+          for k in range(N_PIPE)]
+    xf = [x.to(torch.float32) / 255.0 for x in xs]
+    enc = pipeline.PipelinedEncoder(net, cdfs, depth=PIPE_DEPTH)
+    dec = pipeline.PipelinedDecoder(net, cdfs, depth=PIPE_DEPTH)
+    h_enc = pipeline.HyperPipelinedEncoder(codec, depth=PIPE_DEPTH)
+    h_dec = pipeline.HyperPipelinedDecoder(codec, depth=PIPE_DEPTH)
+
+    def run(pipe, items):
+        for item in items:
+            pipe.submit(item)
+        return pipe.drain()
+
+    paths = {
+        "int8 encode": (lambda: run(enc, xs), lambda: [
+            int_codec.compress_batch(net, x, static_cdfs=cdfs) for x in xs]),
+        "int8 decode": (lambda: run(dec, blobs), lambda: [
+            int_codec.decompress_batch(net, bl, static_cdfs=cdfs)[0]
+            for bl in blobs]),
+        "hyper encode": (lambda: run(h_enc, xf),
+                         lambda: [codec.compress_batch(x) for x in xf]),
+        "hyper decode": (lambda: run(h_dec, h_blobs), lambda: [
+            codec.decompress_batch(bl) for bl in h_blobs]),
+    }
+    counts = {}
+    reset_counts()
+    blobs = run(enc, xs)
+    run(dec, blobs)
+    torch.cuda.synchronize()
+    counts["pipelined int8"] = read_exact("pipelined int8", {
+        "conv3x3_s1_int8": 8 * N_PIPE, "rans_encode": N_PIPE,
+        "rans_decode": N_PIPE})
+    reset_counts()
+    h_blobs = run(h_enc, xf)
+    run(h_dec, h_blobs)
+    torch.cuda.synchronize()
+    counts["pipelined hyper"] = read_exact("pipelined hyper", {
+        "rans_encode": N_PIPE, "rans_decode": N_PIPE,
+        "rans_encode_ctx": N_PIPE, "rans_decode_ctx": N_PIPE})
+
+    def breakdown(pipe, items) -> dict:
+        """Host ms a batch of one run in ``_schedule``, in waiting for the
+        batch's copy (``host_array``), and in the rest of ``_finish``."""
+        spent = {"schedule": 0.0, "finish": 0.0, "wait": 0.0}
+        wait = device_rans.host_array
+
+        def timed(key, fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return call
+        pipe._schedule = timed("schedule", pipe._schedule)
+        pipe._finish = timed("finish", pipe._finish)
+        device_rans.host_array = timed("wait", wait)
+        try:
+            wall_ms(lambda: run(pipe, items))
+        finally:
+            del pipe._schedule, pipe._finish
+            device_rans.host_array = wait
+        ms = {k: v * 1e3 / len(items) for k, v in spent.items()}
+        ms["finish"] -= ms["wait"]
+        return ms
+
+    def never_waits(name: str, pipe, item) -> None:
+        """``submit`` on an empty pipeline behind a queued spin kernel must
+        return while the spin still runs: it waits on no device work."""
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        spun = torch.cuda.Event()
+        spun.record()
+        t0 = time.perf_counter()
+        pipe.submit(item)
+        host = (time.perf_counter() - t0) * 1e3
+        waited = spun.query()
+        pipe.drain()
+        log(f"pipelined {name}: submit returned after {host:.3f} ms with "
+            f"the queued spin {'done' if waited else 'still running'}")
+        if waited:
+            raise AssertionError(f"pipelined {name}: submit waited for "
+                                 f"queued device work")
+
+    def same(a, b) -> bool:
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+
+    pipes = {"int8 encode": (enc, xs), "int8 decode": (dec, blobs),
+             "hyper encode": (h_enc, xf), "hyper decode": (h_dec, h_blobs)}
+    for name, (pipe, items) in pipes.items():
+        never_waits(name, pipe, items[0])
+    mp = N_PIPE * batch * H * W / 1e3          # megapixels per ms -> MP/s
+    for name, (piped, sync) in paths.items():
+        times, ref = {"sync": [], "pipelined": []}, None
+        for kind in ("sync", "pipelined") * PIPE_TURNS:
+            ms, out = wall_ms(sync if kind == "sync" else piped)
+            times[kind].append(ms)
+            if ref is None:
+                ref = out
+            elif not same(out, ref):
+                raise AssertionError(f"{kind} {name} differs from the first "
+                                     f"sync run")
+        s, p = (float(np.median(times[k])) for k in ("sync", "pipelined"))
+        log(f"pipelined [{card}]: {name}, {N_PIPE} batches of B={batch} "
+            f"at depth {PIPE_DEPTH} == the sync calls; ms of each turn "
+            f"(host clock): sync {times['sync']}, pipelined "
+            f"{times['pipelined']}; median {s:.3f} against {p:.3f} ms "
+            f"({mp / s:.1f} against {mp / p:.1f} MP/s, {s / p:.3f}x)")
+        ms = breakdown(*pipes[name])
+        log(f"pipelined [{card}]: {name}, host ms a batch (host clock, one "
+            f"run): schedule {ms['schedule']:.4f}, wait for its copy "
+            f"{ms['wait']:.4f}, rest of the drain {ms['finish']:.4f}; the "
+            f"sync call {s / N_PIPE:.4f}")
+
+    # h_s under cuDNN may choose other algorithms at another batch size: a
+    # sigma across a bin edge desyncs the y streams.  Counted, not failed.
+    y_ref = [codec.decompress_batch(bl)[1] for bl in h_blobs]
+    flat = [bl for group in h_blobs for bl in group]
+    alone = 0
+    for i, blob in enumerate(flat):
+        try:
+            alone += int(torch.equal(codec.decompress_batch([blob])[1][0],
+                                     y_ref[i // batch][i % batch]))
+        except ValueError as e:
+            log(f"hyper image {i} decoded alone: {e}")
+    try:
+        y_all = codec.decompress_batch(flat)[1]
+        together = sum(int(torch.equal(y_all[i], y_ref[i // batch][i % batch]))
+                       for i in range(len(flat)))
+    except ValueError as e:
+        log(f"hyper: the {len(flat)} containers as one batch: {e}")
+        together = 0
+    log(f"hyper: of {len(flat)} containers of the pipelines' B={batch} "
+        f"batches, {alone} decoded alone (B=1) and {together} decoded as one "
+        f"batch of {len(flat)} give the B={batch} decode's y_hat")
+    return counts
+
+
 def host_ms(fn, iters: int = 5) -> float:
     """Mean host-clock time of fn() ending in a synchronize, after one
     warm-up call."""
@@ -1589,10 +1884,15 @@ def main() -> int:
         plans = plans_path(args.batch, golden, smi)
     with phase("dense-flag encode of the int8 latent"):
         dense = dense_encode_path(args.batch, golden)
-    del golden
     with phase("hyper path at 768x512"):
         hyper = hyper_path(args.seed, args.batch, dev, smi, codec)
-    paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper}
+    with phase("device chain at 768x512"):
+        chain = chain_path(args.batch, golden, smi)
+    with phase("pipelined codecs at 768x512"):
+        piped = pipelines_path(args.seed, args.batch, golden, codec, smi)
+    del golden
+    paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
+             "device chain": chain, **piped}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

@@ -172,6 +172,53 @@ def fetch_words(words: torch.Tensor, counts: np.ndarray) -> np.ndarray:
     return words[:, :need].cpu().numpy().view(np.uint16)
 
 
+def words_at_need(words: torch.Tensor, got: np.ndarray, counts: np.ndarray
+                  ) -> Tuple[np.ndarray, int]:
+    """(host words, the bucketed width the longest stream needs) for words
+    copied at a predicted width: ``got`` itself, or where that width falls
+    short of the need, the words fetched again (blocking)."""
+    need = min(bucket_words(int(counts.max())), words.shape[1])
+    if need > got.shape[1]:
+        got = fetch_words(words, counts)
+    return got, need
+
+
+def to_host_async(t: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+    """Start copying a CUDA tensor into pinned host memory on the current
+    stream and record an event after the copy; the host tensor may be read
+    once ``host_array`` has waited on that event.  Each call takes a pinned
+    buffer of its own, which the caller holds until it has read it.  On the
+    CPU: (``t``, None)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def host_array(fetched: Tuple[torch.Tensor, Optional[torch.cuda.Event]]
+               ) -> np.ndarray:
+    """The numpy view of a ``to_host_async`` copy, after waiting on its
+    event (that copy alone, not the stream's later work)."""
+    host, done = fetched
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+def to_device_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a host array through pinned memory without waiting for the
+    stream (the pinned copy stays allocated until the upload has run).  On
+    the CPU: the array as a tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def gather_words(chunks: list) -> Tuple[np.ndarray, np.ndarray]:
     """S ilrans streams -> ((S, cap) u16 words past each header, zero-
     padded to a bucketed cap; (S,) int32 word counts)."""

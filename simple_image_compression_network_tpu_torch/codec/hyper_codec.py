@@ -13,7 +13,13 @@ decode: z from its streams (kernel C) -> sigma -> scale bins -> y from its
         streams (kernel E) -> g_s(y_hat).
 
 Both sides derive the scale bins from the same z_hat with the same program,
-so y_hat equals the encoder's rounded y exactly.  Values outside the
+so y_hat equals the encoder's rounded y exactly.  Each direction is a
+schedule phase, which enqueues the device work and an asynchronous copy of
+what the host needs, and a drain phase, which waits for that copy alone and
+packs or checks (``_compress_schedule``/``_compress_drain``,
+``_decompress_schedule``/``_decompress_drain``, as in the JAX package):
+``codec/pipeline.py`` overlaps one batch's drain with the next one's
+device work.  Values outside the
 tables' alphabets ([-63, 63] for z, [-127, 127] for y) are coded as an
 escape symbol and carried raw in side sections (``codec/escape.py``).
 
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import copy
 import struct
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +102,14 @@ class HyperCodec:
         self.z_cdfs = build_factorized_cdfs(model)
         self.y_cdfs_dev = build_gaussian_cdfs(self.scale_table, _Y_MAX_DEV)
         self._tables: Dict[Tuple, torch.Tensor] = {}
+        # uploaded once: an upload from pageable memory waits for the stream
+        self._scale_bounds = torch.tensor(self.scale_table,
+                                          dtype=torch.float32,
+                                          device=self.device)
+        # bucketed word widths for the copy the schedule phase starts,
+        # learned from the previous batch's counts
+        self._mxb_z: Optional[int] = None
+        self._mxb_y: Optional[int] = None
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None) -> "HyperCodec":
@@ -126,9 +140,8 @@ class HyperCodec:
         """Scale bin of each latent: #{k: table[k] < sigma}, clipped to the
         last bin.  The table is compared in float32, as the JAX package
         does: a float64 table puts some sigmas in other bins."""
-        table = torch.tensor(self.scale_table, dtype=torch.float32,
-                             device=sigma.device)
-        idx = torch.searchsorted(table, sigma.to(torch.float32).contiguous())
+        idx = torch.searchsorted(self._scale_bounds,
+                                 sigma.to(torch.float32).contiguous())
         return idx.clamp(0, len(self.scale_table) - 1).to(torch.int32)
 
     # --- encode ---------------------------------------------------------
@@ -144,20 +157,41 @@ class HyperCodec:
 
     def compress_batch(self, x: torch.Tensor) -> List[bytes]:
         """(B, X, Y, 3) [0, 1] images, X and Y multiples of 64 -> B
-        ``CODEC_HYPERPRIOR_DEV`` containers."""
+        ``CODEC_HYPERPRIOR_DEV`` containers: ``_compress_drain`` of
+        ``_compress_schedule``."""
+        return self._compress_drain(self._compress_schedule(x))
+
+    def _compress_schedule(self, x: torch.Tensor) -> Tuple:
+        """Enqueue one batch's device work and the copy of what the host
+        needs; no wait on the device.  Returns the state that
+        ``_compress_drain`` packs, so that a pipeline packs batch k while
+        batch k+1 runs (``pipeline.HyperPipelinedEncoder``)."""
         if x.shape[1] % 64 or x.shape[2] % 64:
             raise ValueError("hyperprior codecs need image sides divisible "
                              "by 64 (16x analysis, 4x hyper stage)")
         y, z, sigma = self.encode_parts(x)
-        return self.entropy_encode(y, z, self._scale_ctx(sigma),
-                                   x.shape[1], x.shape[2])
+        return self._entropy_schedule(y, z, self._scale_ctx(sigma),
+                                      x.shape[1], x.shape[2])
 
     def entropy_encode(self, y: torch.Tensor, z: torch.Tensor,
                        ctx_y: torch.Tensor, ix: int, iy: int) -> List[bytes]:
         """Integer y (B, yx, yy, M), z (B, zx, zy, N) and y's scale bins
-        -> B containers.  Two kernel launches (z on B, y on D), one fetch
-        of counts and escape totals, one of each tensor's words, and the
-        raw values only for batches that have escapes."""
+        -> B containers."""
+        return self._compress_drain(
+            self._entropy_schedule(y, z, ctx_y, ix, iy))
+
+    def _entropy_schedule(self, y: torch.Tensor, z: torch.Tensor,
+                          ctx_y: torch.Tensor, ix: int, iy: int) -> Tuple:
+        """Two kernel launches (z on B, y on D), then ONE copy to pinned
+        host memory of the counts, the escape totals and both tensors'
+        words, each cut at the width the previous batch needed (``_mxb_z``,
+        ``_mxb_y``; the whole width at first), with an event after it.
+
+        The JAX package re-encodes a tensor on its scan engine when a count
+        outgrows the compact kernel's staging cap.  Kernels B and D write
+        into buffers sized for the worst case, one word a symbol
+        (``cuda_rans.encode_batch_compact``), so no count can outgrow
+        them and there is no re-encode."""
         b, yx, yy, yc = y.shape
         _, zx, zy, zc = z.shape
         s_z, nl_z, t_z = _plan_lanes(zx * zy, zc)
@@ -172,15 +206,39 @@ class HyperCodec:
             .contiguous())
         z_esc = (z.abs() > _Z_MAX).reshape(b, -1).sum(1)
         y_esc = (y.abs() > _Y_MAX_DEV).reshape(b, -1).sum(1)
+        w_z = min(self._mxb_z or zw.shape[1], zw.shape[1])
+        w_y = min(self._mxb_y or yw.shape[1], yw.shape[1])
         meta = torch.cat([zcnt, ycnt, z_esc.to(torch.int32),
-                          y_esc.to(torch.int32)]).cpu().numpy()
+                          y_esc.to(torch.int32)])
+        fetch = device_rans.to_host_async(torch.cat([
+            zw[:, :w_z].reshape(-1), yw[:, :w_y].reshape(-1),
+            meta.view(torch.int16)]))
+        plan = (ix, iy, b, zx, zy, zc, yx, yy, yc,
+                s_z, nl_z, t_z, s_y, nl_y, t_y)
+        return plan, (w_z, w_y), fetch, z, y, zw, yw
+
+    def _compress_drain(self, state: Tuple) -> List[bytes]:
+        """Wait for a scheduled batch's copy and pack its containers.  A
+        tensor whose longest stream outgrew the predicted width is fetched
+        again, blocking; the widths for the next batch are learned here."""
+        plan, (w_z, w_y), fetch, z, y, zw, yw = state
+        (ix, iy, b, zx, zy, zc, yx, yy, yc,
+         s_z, nl_z, t_z, s_y, nl_y, t_y) = plan
+        buf = device_rans.host_array(fetch)
+        n_wz, n_wy = b * s_z * w_z, b * s_y * w_y
+        meta = buf[n_wz + n_wy:].view(np.int32)
         zcnt_np, ycnt_np = meta[:b * s_z], meta[b * s_z: b * (s_z + s_y)]
         z_esc_np = meta[b * (s_z + s_y): b * (s_z + s_y) + b]
         y_esc_np = meta[b * (s_z + s_y) + b:]
+        zw_np, self._mxb_z = device_rans.words_at_need(
+            zw, buf[:n_wz].view(np.uint16).reshape(b * s_z, w_z), zcnt_np)
+        yw_np, self._mxb_y = device_rans.words_at_need(
+            yw, buf[n_wz: n_wz + n_wy].view(np.uint16).reshape(b * s_y, w_y),
+            ycnt_np)
         z_chunks = device_rans.streams_from_words(
-            device_rans.fetch_words(zw, zcnt_np), zcnt_np, t_z * nl_z, nl_z)
+            zw_np, zcnt_np, t_z * nl_z, nl_z)
         y_chunks = device_rans.streams_from_words(
-            device_rans.fetch_words(yw, ycnt_np), ycnt_np, t_y * nl_y, nl_y)
+            yw_np, ycnt_np, t_y * nl_y, nl_y)
         z_np = z.cpu().numpy() if z_esc_np.any() else None
         y_np = y.cpu().numpy() if y_esc_np.any() else None
 
@@ -204,7 +262,19 @@ class HyperCodec:
         """B containers of one geometry -> (x_hat (B, X, Y, 3), y_hat
         (B, X/16, Y/16, M)) float32 on the device, and z_hat with
         ``return_z``.  Raises ValueError for a corrupt container (a stream
-        whose words consumed != its length, or a final state != 2^16)."""
+        whose words consumed != its length, or a final state != 2^16):
+        ``_decompress_drain`` of ``_decompress_schedule``."""
+        x_hat, y_hat, z_hat = self._decompress_drain(
+            self._decompress_schedule(blobs))
+        return (x_hat, y_hat, z_hat) if return_z else (x_hat, y_hat)
+
+    def _decompress_schedule(self, blobs: Sequence[bytes]) -> Tuple:
+        """Parse the containers on the host, upload both tensors' words
+        and counts in one pinned copy, and enqueue the decodes (C on z, E
+        on y), the scales between them and g_s; then the copy of the
+        validity flags to pinned host memory, with an event after it.  No
+        wait on the device, except to patch escapes into a batch that
+        carries raw values."""
         metas = []
         for data in blobs:
             cid, sections = container.unpack(data)
@@ -222,13 +292,20 @@ class HyperCodec:
         s_y, nl_y, t_y = _plan_lanes(yx * yy, yc)
         if any(len(m[1]) != s_z or len(m[2]) != s_y for m in metas):
             raise ValueError("stream plan does not match the geometry")
-        dev = self.device
         zw_np, zc_np = device_rans.gather_words(
             [ch for m in metas for ch in m[1]])
         yw_np, yc_np = device_rans.gather_words(
             [ch for m in metas for ch in m[2]])
-        zw = torch.from_numpy(zw_np.view(np.int16)).to(dev)
-        yw = torch.from_numpy(yw_np.view(np.int16)).to(dev)
+        # words first, so that each tensor's words start 16-byte aligned
+        # (the caps are multiples of the bucket); the counts after them
+        up = device_rans.to_device_async(np.concatenate([
+            zw_np.reshape(-1), yw_np.reshape(-1),
+            np.concatenate([zc_np, yc_np]).view(np.uint16)]).view(np.int16),
+            self.device)
+        n_wz, n_wy = zw_np.size, yw_np.size
+        zw = up[:n_wz].view(zw_np.shape)
+        yw = up[n_wz: n_wz + n_wy].view(yw_np.shape)
+        counts = up[n_wz + n_wy:].view(torch.int32)
 
         z_syms, z_cons, z_fin = cuda_rans.decode(
             zw, cuda_rans.split_init(zw, nl_z), self._z_lane_cdf(nl_z), t_z)
@@ -246,16 +323,21 @@ class HyperCodec:
         x_hat = self.model.decode_arrays(y_hat)
 
         lb = ilrans.STATE_LB
-        ok = torch.cat([z_cons, (z_fin == lb).all(1).to(torch.int32),
-                        y_cons, (y_fin == lb).all(1).to(torch.int32)]
-                       ).cpu().numpy()
-        n_z, n_y = zc_np.size, yc_np.size
-        if not ((ok[:n_z] == zc_np).all() and ok[n_z: 2 * n_z].all()):
+        ok = torch.cat([(z_fin == lb).all(1), (y_fin == lb).all(1)]) & (
+            torch.cat([z_cons, y_cons]) == counts)
+        return x_hat, y_hat, z_hat, device_rans.to_host_async(ok), zc_np.size
+
+    def _decompress_drain(self, state: Tuple
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """Wait for a scheduled batch's validity flags and check them."""
+        x_hat, y_hat, z_hat, fetch, n_z = state
+        ok = device_rans.host_array(fetch)
+        if not ok[:n_z].all():
             raise ValueError("corrupt hyper-latent stream")
-        o = 2 * n_z
-        if not ((ok[o: o + n_y] == yc_np).all() and ok[o + n_y:].all()):
+        if not ok[n_z:].all():
             raise ValueError("corrupt latent stream")
-        return (x_hat, y_hat, z_hat) if return_z else (x_hat, y_hat)
+        return x_hat, y_hat, z_hat
 
     # --- not ported yet -------------------------------------------------
     def compress(self, x: torch.Tensor) -> bytes:

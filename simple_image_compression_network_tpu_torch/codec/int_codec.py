@@ -15,6 +15,13 @@ Latent layout: (zx*zy, C) channel-fastest, split into S contiguous spatial
 streams of t steps x N = lane_mult*C lanes; lane k codes channel k % C.
 At 768x512 that is S = 8 streams, t = 96 steps, N = 384 lanes per image.
 
+Each direction is a schedule phase, which enqueues the device work and an
+asynchronous copy of what the host needs, and a drain phase, which waits
+for that copy alone and packs or checks (``_compress_schedule`` /
+``_compress_drain``, ``_decompress_schedule`` / ``_decompress_drain``):
+``codec/pipeline.py`` overlaps one batch's drain with the next one's
+device work, and each batch call is the drain of its schedule.
+
 Not ported yet (``NotImplementedError``): per-image histogram tables
 (``static_cdfs=None``) and the host coders (``coder`` other than "device").
 """
@@ -109,27 +116,58 @@ def compress_batch(net: IntCodecNet, x: torch.Tensor,
 
     Runs on ``net.device``: one batched transform and one batched entropy
     encode over all B*S streams, then one fetch of the counts and one of
-    the words (bucketed to the longest stream)."""
+    the words (bucketed to the longest stream): ``_compress_drain`` of
+    ``_compress_schedule``."""
     _require_device_coder(coder, static_cdfs)
+    return _compress_drain(_compress_schedule(net, x, static_cdfs, 0,
+                                              lane_mult, n_streams))[0]
+
+
+def _compress_schedule(net: IntCodecNet, x: torch.Tensor,
+                       static_cdfs: np.ndarray, mxb: int | None,
+                       lane_mult: int = DEFAULT_LANE_MULT,
+                       n_streams: int = DEFAULT_STREAMS) -> Tuple:
+    """Enqueue one batch's analysis (kernel A) and encode (kernel B), then
+    ONE copy to pinned host memory of the counts and the words' first
+    ``mxb`` columns (None: every column; 0: the counts alone), with an
+    event after it; no wait on the device.  Returns the state that
+    ``_compress_drain`` packs, so that a pipeline packs batch k while
+    batch k+1 runs (``pipeline.PipelinedEncoder``).
+
+    Kernel B writes into buffers sized for one word a symbol, so no stream
+    outgrows them: the JAX package's re-encode on its scan engine has no
+    counterpart here."""
     z = net.analysis(x)
     b, zx, zy, c = z.shape
     s, lane_mult = plan_streams(zx * zy, lane_mult, n_streams)
     n_lanes = lane_mult * c
     t_steps = (zx * zy) // lane_mult // s
-    n_syms = t_steps * n_lanes  # per stream
-    header = struct.pack("<HHHHH", x.shape[1], x.shape[2], zx, zy, c)
-
     lane_cdf = _lane_cdf_tensor(static_cdfs, n_lanes, z.device)
     words, counts = cuda_rans.encode_batch_compact(
         z.reshape(b * s, t_steps, n_lanes), lane_cdf)
-    counts_np = counts.cpu().numpy()
-    flat_w = device_rans.fetch_words(words, counts_np)
+    w = words.shape[1] if mxb is None else min(mxb, words.shape[1])
+    fetch = device_rans.to_host_async(torch.cat([
+        words[:, :w].reshape(-1), counts.view(torch.int16)]))
+    header = struct.pack("<HHHHH", x.shape[1], x.shape[2], zx, zy, c)
+    return words, fetch, w, b, s, t_steps * n_lanes, n_lanes, header
+
+
+def _compress_drain(state: Tuple) -> Tuple[List[bytes], int]:
+    """Wait for a scheduled batch's copy and pack its containers -> (B
+    containers, the bucketed width its longest stream needed).  Words cut
+    narrower than that need are fetched again, blocking."""
+    words, fetch, w, b, s, n_syms, n_lanes, header = state
+    buf = device_rans.host_array(fetch)
+    n_str = b * s
+    counts_np = buf[n_str * w:].view(np.int32)
+    flat_w, need = device_rans.words_at_need(
+        words, buf[:n_str * w].view(np.uint16).reshape(n_str, w), counts_np)
     chunks = device_rans.streams_from_words(flat_w, counts_np, n_syms,
                                             n_lanes)
     return [container.pack(container.CODEC_INT8,
                            [header, b"", _pack_streams(chunks[i * s:
                                                               (i + 1) * s])])
-            for i in range(b)]
+            for i in range(b)], need
 
 
 def decompress_batch(net: IntCodecNet, streams: Sequence[bytes],
@@ -139,8 +177,18 @@ def decompress_batch(net: IntCodecNet, streams: Sequence[bytes],
     """B containers -> (reconstructions (B, X, Y, 3) int8, latents int8),
     both on ``net.device``.  All containers must share one geometry.
     Raises ValueError for a corrupt stream (words consumed != stream
-    length, or a final coder state != 2^16)."""
+    length, or a final coder state != 2^16): ``_decompress_drain`` of
+    ``_decompress_schedule``."""
     _require_device_coder(coder, static_cdfs)
+    return _decompress_drain(_decompress_schedule(net, streams, static_cdfs))
+
+
+def _decompress_schedule(net: IntCodecNet, streams: Sequence[bytes],
+                         static_cdfs: np.ndarray) -> Tuple:
+    """Parse the containers on the host, upload words and counts in one
+    pinned copy without waiting, and enqueue the decode (kernel C), the
+    synthesis (kernel A) and the copy of each stream's validity flag to
+    pinned host memory, with an event after it."""
     metas = []
     for data in streams:
         codec_id, sections = container.unpack(data)
@@ -164,14 +212,24 @@ def decompress_batch(net: IntCodecNet, streams: Sequence[bytes],
     words, true_counts = device_rans.gather_words(
         [chunk for m in metas for chunk in m[1]])
     dev = net.device
-    wdev = torch.from_numpy(words.view(np.int16)).to(dev)
+    # words first (16-byte aligned for the kernel), the counts after
+    up = device_rans.to_device_async(np.concatenate([
+        words.reshape(-1), true_counts.view(np.uint16)]).view(np.int16), dev)
+    wdev = up[:words.size].view(words.shape)
+    counts = up[words.size:].view(torch.int32)
     lane_cdf = _lane_cdf_tensor(static_cdfs, n_lanes, dev)
     syms, consumed, x_fin = cuda_rans.decode(
         wdev, cuda_rans.split_init(wdev, n_lanes), lane_cdf, t_steps)
     z = syms.reshape(len(streams), zx, zy, c)
     x_hat = net.synthesis(z)
-    ok = ((consumed.cpu().numpy() == true_counts)
-          & (x_fin.cpu().numpy() == ilrans.STATE_LB).all(axis=1))
+    ok = (consumed == counts) & (x_fin == ilrans.STATE_LB).all(1)
+    return x_hat, z, device_rans.to_host_async(ok), s
+
+
+def _decompress_drain(state: Tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wait for a scheduled batch's validity flags and check them."""
+    x_hat, z, fetch, s = state
+    ok = device_rans.host_array(fetch)
     if not ok.all():
         bad = int(np.flatnonzero(~ok)[0])
         raise ValueError(f"corrupt stream (image {bad // s}, chunk {bad % s})")
