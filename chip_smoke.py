@@ -30,7 +30,18 @@ paths at full width on B random-seeded 768x512 images:
   program timed eagerly and replayed;
 * the four pipelines over 4 batches of B images at depth 2, equal to the
   sync calls, timed against them, each ``submit`` shown to wait on no
-  queued device work.
+  queued device work;
+* the wavelet codec ``WaveletCodec`` under its four profiles (Haar
+  weights, shipped tables ``checkpoints/haar*_cdfs.npz``): compress_batch
+  then decompress_batch, checked against the golden transform of the numpy
+  wire map, the device maps against the numpy maps, kernels B and C
+  against their plain versions on each profile's real latent, the
+  containers against the native host coder's, with no lane table
+  uploaded again once the four have run;
+* the host coders: containers with per-image tables on the native coder
+  (decoded to the golden), the native coder with the static CDFs (the
+  main path's containers byte for byte), and the serial hyperprior format
+  on one image (y_hat equal to the device format's).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -1365,7 +1376,7 @@ def main_path(seed: int, batch: int, dev, card: str) -> tuple:
         f"decode {dec_ms} ms ({mp / (t2 - t1)} MP/s), peak device memory "
         f"{mem} bytes; z_hat == golden, x_hat == golden")
     return counts, {"x": x, "params": params, "net": net, "cdfs": cdfs,
-                    "z_ref": z_ref, "x_ref": x_ref}
+                    "z_ref": z_ref, "x_ref": x_ref, "blobs": blobs}
 
 
 def plans_path(batch: int, golden: dict, card: str) -> dict:
@@ -1775,6 +1786,258 @@ def pipelines_path(seed: int, batch: int, golden: dict, codec,
     return counts
 
 
+MEDIAN_CALLS = 5
+
+
+def median_ms(fn) -> float:
+    """Median host-clock time of ``MEDIAN_CALLS`` calls of fn(), each
+    ending in a synchronize."""
+    times = []
+    for _ in range(MEDIAN_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+# kernel launches of one wavelet compress_batch + decompress_batch round
+WAVELET_ROUND = {"conv3x3_s1_int8": 8, "rans_encode": 1, "rans_decode": 1}
+# of the host coders' compress_batch + decompress_batch: the transform only
+HOST_ROUND = {"conv3x3_s1_int8": 8, "rans_encode": 0, "rans_decode": 0}
+# of decode_bytes on one stream, on its lane table and on a context table
+DECODE_BYTES = {"rans_decode": 1, "rans_decode_ctx": 1}
+
+
+def per_image_round(batch: int) -> dict:
+    """The device coder's round with per-image tables: kernels B and C
+    once an image."""
+    return {"conv3x3_s1_int8": 8, "rans_encode": batch,
+            "rans_decode": batch}
+
+
+def wavelet_path(seed: int, batch: int, dev, card: str, errs: dict) -> dict:
+    """``WaveletCodec`` at 768x512 under each of its four profiles: every
+    codec built and warmed up once, then one counted compress_batch +
+    decompress_batch round each (host clock), with its gates: x_hat and
+    z_hat equal to the golden transform of the numpy wire map, the device
+    wire and display maps equal to the numpy ones, kernels B and C on the
+    profile's table and real latent equal to their plain versions, the
+    containers equal to the native coder's, ``roundtrip_metrics`` exact,
+    and no lane table uploaded again after the warm-up.  Then
+    ``device_rans.decode_bytes`` on one stream of the default profile's
+    container, on kernel C with its lane table and on kernel E with the
+    profile's tables as a context table, each equal to the native
+    decoder.  Returns the launch counts by profile and of decode_bytes."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        cuda_rans, device_rans, ilrans, int_codec, rans, wavelet_codec)
+    from simple_image_compression_network_tpu_torch.models import codec_int
+    t0 = time.perf_counter()
+    rans.load_native()                 # the gates below use the host coder
+    log(f"host coder g++ build and load: {time.perf_counter() - t0:.2f} s")
+    imgs = make_images(seed + 20, batch)
+    x = torch.from_numpy(imgs).to(dev)
+    codecs = {}
+    for profile in wavelet_codec.PROFILES:
+        c = codecs[profile] = wavelet_codec.WaveletCodec(profile, device=dev)
+        c.decompress_batch(c.compress_batch(x))                  # warm-up
+    torch.cuda.synchronize()
+    misses = int_codec._lane_cdf_tensor.misses
+    counts = {}
+    mp = batch * H * W / 1e6
+    for profile, c in codecs.items():
+        path = f"wavelet {profile}"
+        reset_counts()
+        t0 = time.perf_counter()
+        blobs = c.compress_batch(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec, x_hat = c.decompress_batch(blobs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts[path] = read_exact(path, WAVELET_ROUND)
+
+        wire_np = c.to_wire(imgs)
+        wire = torch.from_numpy(wire_np).to(dev)
+        require_equal(f"{path}: device wire map == numpy", c._wire_dev(x),
+                      wire)
+        z_ref = codec_int.analysis_int8(c.params, wire,
+                                        impl=codec_int.GOLDEN_PLAN)
+        x_ref = codec_int.synthesis_int8(c.params, z_ref,
+                                         impl=codec_int.GOLDEN_PLAN)
+        require_equal(f"{path}: x_hat == eight_layers_net(golden)", x_hat,
+                      x_ref)
+        _, z_hat = int_codec.decompress_batch(c.net, blobs,
+                                              static_cdfs=c.cdfs)
+        require_equal(f"{path}: z_hat == analysis (golden)", z_hat, z_ref)
+        require_equal(f"{path}: device display map == numpy",
+                      torch.from_numpy(rec),
+                      torch.from_numpy(c.display(x_hat.cpu().numpy())))
+
+        b, zx, zy, ch = z_ref.shape
+        s, lm = int_codec.plan_streams(zx * zy)
+        n, t = lm * ch, zx * zy // lm // s
+        lane_cdf = int_codec._lane_cdf_tensor(c.cdfs, n, dev)
+        n_words = check_rans(
+            f"kernels B, C on {profile}'s table and latent",
+            cuda_rans.encode_batch_compact, cuda_rans.decode,
+            cuda_rans.encode_batch_compact_plain, cuda_rans.decode_plain,
+            z_ref.reshape(b * s, t, n).contiguous(), (lane_cdf,), t, n,
+            errs, ("rans_encode", "rans_decode"))
+        native = int_codec.compress_batch(c.net, wire, static_cdfs=c.cdfs,
+                                          coder="native")
+        if native != blobs:
+            raise AssertionError(f"{path}: the containers differ from the "
+                                 f"native coder's")
+        m = c.roundtrip_metrics(imgs)
+        if not m["decode_bit_exact"]:
+            raise AssertionError(f"{path}: roundtrip_metrics {m}")
+        full_rows = int((np.diff(c.cdfs, axis=1) == 65408).any(1).sum())
+        enc_med = median_ms(lambda: c.compress_batch(x))
+        dec_med = median_ms(lambda: c.decompress_batch(blobs))
+        n_bytes = sum(len(bl) for bl in blobs)
+        log(f"{path}: x_hat, z_hat == golden, wire and display maps == "
+            f"numpy, kernels B, C == plain on the latent ({int(n_words.sum())}"
+            f" words; {full_rows} table rows with a symbol at 65,408), "
+            f"containers == the native coder's")
+        log(f"{path} [{card}]: B={batch} 768x512, {n_bytes} container bytes, "
+            f"{8 * n_bytes / (batch * H * W)} bpp, PSNR {m['psnr_db']} dB; "
+            f"encode {(t1 - t0) * 1e3} ms ({mp / (t1 - t0)} MP/s), decode "
+            f"{(t2 - t1) * 1e3} ms ({mp / (t2 - t1)} MP/s), host clock; "
+            f"median of {MEDIAN_CALLS} more: encode {enc_med} ms "
+            f"({mp * 1e3 / enc_med} MP/s), decode {dec_med} ms "
+            f"({mp * 1e3 / dec_med} MP/s)")
+    again = int_codec._lane_cdf_tensor.misses - misses
+    log(f"wavelet: lane tables uploaded after the warm-up: {again}")
+    if again:
+        raise AssertionError(f"the four profiles uploaded {again} lane "
+                             f"tables again after the warm-up")
+
+    profile = wavelet_codec.DEFAULT_PROFILE
+    c = codecs[profile]
+    chunk = int_codec._parse(c.compress_batch(x)[:1])[0][2][0]
+    n, n_lanes, _, _ = ilrans.unpack_header(chunk)
+    rows = c.cdfs.shape[0]
+    ctx = np.arange(n, dtype=np.int32) % rows      # lane k: channel k % C
+    want = rans.decode_interleaved(chunk, ctx, c.cdfs)
+    torch.cuda.synchronize()
+    reset_counts()
+    by_lane = device_rans.decode_bytes(
+        chunk, int_codec._lane_cdf(c.cdfs, n_lanes), None, device=dev)
+    by_ctx = device_rans.decode_bytes(chunk, c.cdfs, ctx, device=dev)
+    counts["decode_bytes"] = read_exact("decode_bytes", DECODE_BYTES)
+    for what, got in (("kernel C, lane table", by_lane),
+                      ("kernel E, context table", by_ctx)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"decode_bytes ({what}) differs from the "
+                                 f"native decoder")
+    log(f"decode_bytes on {profile}'s stream 0 ({n} symbols, {n_lanes} "
+        f"lanes): kernel C on its lane table and kernel E on its {rows}-row "
+        f"context table == the native decoder")
+    return counts
+
+
+def host_coders_path(seed: int, batch: int, golden: dict, codec,
+                     card: str) -> dict:
+    """Per-image tables at 768x512 with the reference weights, on the
+    device coder (kernels B and C once an image) and on the native coder,
+    each a counted round whose x_hat must equal the golden transform, the
+    two coders' containers equal byte for byte; the native coder with the
+    static CDFs, equal to the main path's containers byte for byte; and
+    the serial hyperprior format on one image, whose y_hat must equal the
+    device format's.  Returns the counted rounds' launches."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        container, int_codec)
+    net, x, cdfs = golden["net"], golden["x"], golden["cdfs"]
+    table_bytes = 2 * 192 * 129
+    counts, made = {}, {}
+    for coder, path, expect in (
+            ("device", "per-image tables", per_image_round(batch)),
+            ("native", "per-image tables, native", HOST_ROUND)):
+        int_codec.decompress_batch(net, int_codec.compress_batch(
+            net, x, coder=coder), coder=coder)                   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        blobs = made[coder] = int_codec.compress_batch(net, x, coder=coder)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x_hat, _ = int_codec.decompress_batch(net, blobs, coder=coder)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts[path] = read_exact(path, expect)
+        require_equal(f"{path}: x_hat == golden", x_hat, golden["x_ref"])
+        for bl in blobs:
+            if len(container.unpack(bl)[1][1]) != table_bytes:
+                raise AssertionError("a container without its 49,536 bytes "
+                                     "of tables")
+        n_bytes = sum(len(bl) for bl in blobs)
+        enc_med = median_ms(lambda: int_codec.compress_batch(net, x,
+                                                             coder=coder))
+        dec_med = median_ms(lambda: int_codec.decompress_batch(
+            net, blobs, coder=coder))
+        log(f"per-image tables, {coder} coder [{card}]: B={batch} 768x512, "
+            f"{n_bytes} container bytes ({table_bytes} of tables each), "
+            f"{8 * n_bytes / (batch * H * W)} bpp; encode "
+            f"{(t1 - t0) * 1e3} ms, decode {(t2 - t1) * 1e3} ms, host clock;"
+            f" median of {MEDIAN_CALLS} more: encode {enc_med} ms, decode "
+            f"{dec_med} ms")
+    if made["device"] != made["native"]:
+        raise AssertionError("per-image tables: the device coder's "
+                             "containers differ from the native coder's")
+    log("per-image tables: the device coder's containers (kernels B and C "
+        "once an image) == the native coder's")
+
+    t0 = time.perf_counter()
+    static = int_codec.compress_batch(net, x, static_cdfs=cdfs,
+                                      coder="native")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_s, _ = int_codec.decompress_batch(net, static, static_cdfs=cdfs,
+                                        coder="native")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if static != golden["blobs"]:
+        raise AssertionError("native coder, static CDFs: containers differ "
+                             "from the main path's")
+    require_equal("native coder, static CDFs: x_hat == golden", x_s,
+                  golden["x_ref"])
+    enc_med = median_ms(lambda: int_codec.compress_batch(
+        net, x, static_cdfs=cdfs, coder="native"))
+    dec_med = median_ms(lambda: int_codec.decompress_batch(
+        net, static, static_cdfs=cdfs, coder="native"))
+    log(f"static CDFs on the native coder [{card}]: containers == the main "
+        f"path's; encode {(t1 - t0) * 1e3} ms, decode {(t2 - t1) * 1e3} ms, "
+        f"host clock; median of {MEDIAN_CALLS} more: encode {enc_med} ms, "
+        f"decode {dec_med} ms")
+
+    x1 = torch.from_numpy(make_images(seed + 1, 1)).to(net.device)
+    x1 = x1.to(torch.float32) / 255.0
+    codec.decompress(codec.compress(x1))                         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = codec.compress(x1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, y_serial = codec.decompress(data)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dev_blob = codec.compress_batch(x1)[0]
+    _, y_dev = codec.decompress_batch([dev_blob])
+    require_equal("hyper serial y_hat == the device format's", y_serial,
+                  y_dev)
+    enc_med = median_ms(lambda: codec.compress(x1))
+    dec_med = median_ms(lambda: codec.decompress(data))
+    log(f"hyper serial format [{card}]: B=1 768x512, {len(data)} container "
+        f"bytes, {8 * len(data) / (H * W)} bpp (the device format on the "
+        f"same image: {len(dev_blob)} bytes, "
+        f"{8 * len(dev_blob) / (H * W)} bpp); encode {(t1 - t0) * 1e3} ms,"
+        f" decode {(t2 - t1) * 1e3} ms, host clock; median of {MEDIAN_CALLS}"
+        f" more: encode {enc_med} ms, decode {dec_med} ms; y_hat == the "
+        f"device format's")
+    return counts
+
+
 def host_ms(fn, iters: int = 5) -> float:
     """Mean host-clock time of fn() ending in a synchronize, after one
     warm-up call."""
@@ -1890,9 +2153,13 @@ def main() -> int:
         chain = chain_path(args.batch, golden, smi)
     with phase("pipelined codecs at 768x512"):
         piped = pipelines_path(args.seed, args.batch, golden, codec, smi)
+    with phase("wavelet codec at 768x512"):
+        wavelet = wavelet_path(args.seed, args.batch, dev, smi, errs)
+    with phase("host coders and per-image tables at 768x512"):
+        host = host_coders_path(args.seed, args.batch, golden, codec, smi)
     del golden
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
-             "device chain": chain, **piped}
+             "device chain": chain, **piped, **wavelet, **host}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

@@ -9,6 +9,8 @@ The library lands in ``build/torch_kernels/<sha256 of sources and
 flags>/libsicn_kernels.so`` under the repository root, at first use.  The
 compiler writes to a temporary name that is renamed into place, so a build
 that is cut off leaves nothing that a later build would trust or wait on.
+The host rANS coder (``codec/rans.py``) is built by the same
+``compile_library`` with g++.
 """
 
 from __future__ import annotations
@@ -65,13 +67,43 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
+def _digest(flags, paths) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(paths):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
+
+
+def compile_library(compiler: str, flags, srcs, hashed, root: str,
+                    name: str, timeout: int) -> tuple:
+    """``compiler flags -o root/<digest>/name srcs`` unless that library
+    exists; ``digest`` covers the flags and the files ``hashed`` (the
+    sources and what they include).  The compiler writes a temporary name
+    that is renamed into place.  Returns (library path, compiler log); the
+    log is '' when the library was already built."""
+    out_dir = os.path.join(root, _digest(flags, hashed))
+    lib_path = os.path.join(out_dir, name)
+    if os.path.exists(lib_path):
+        return lib_path, ""
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    tool = os.path.basename(compiler)
+    try:
+        res = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
+                             capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{tool} exceeded {timeout} s") from e
+    if res.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{tool} failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    return lib_path, res.stdout + res.stderr
 
 
 def build() -> tuple:
@@ -80,25 +112,9 @@ def build() -> tuple:
     Returns (library path, compiler log).  The log holds ``-Xptxas -v``'s
     register, shared-memory and spill lines of a fresh build ('' when the
     library was already built)."""
-    out_dir = os.path.join(_BUILD_ROOT, _digest())
-    lib_path = os.path.join(out_dir, LIB_NAME)
-    if os.path.exists(lib_path):
-        return lib_path, ""
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc exceeded {BUILD_TIMEOUT_S} s") from e
-    if res.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, lib_path)
-    return lib_path, res.stdout + res.stderr
+    return compile_library(find_nvcc(), NVCC_FLAGS, sources(),
+                           glob.glob(os.path.join(_CSRC, "*.cu*")),
+                           _BUILD_ROOT, LIB_NAME, BUILD_TIMEOUT_S)
 
 
 def lib() -> ctypes.CDLL:

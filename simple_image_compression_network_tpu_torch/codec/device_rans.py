@@ -229,6 +229,15 @@ def gather_words(chunks: list) -> Tuple[np.ndarray, np.ndarray]:
             counts)
 
 
+def bytes_from_words(words: np.ndarray, count: int, n_syms: int,
+                     n_lanes: int, prec: int = ilrans.PREC) -> bytes:
+    """One stream's device encode output -> ilrans stream bytes (header +
+    words[:count])."""
+    return (ilrans.pack_header(n_syms, n_lanes, prec)
+            + np.ascontiguousarray(words[:count]).astype(
+                "<u2", copy=False).tobytes())
+
+
 def streams_from_words(words: np.ndarray, counts: np.ndarray, n_syms: int,
                        n_lanes: int, prec: int = ilrans.PREC) -> list:
     """(S, cap) u16 words + (S,) counts -> S ilrans streams (header +
@@ -239,3 +248,46 @@ def streams_from_words(words: np.ndarray, counts: np.ndarray, n_syms: int,
     row = w2.shape[1] * 2
     return [hdr + bytes(mv[i * row: i * row + 2 * int(counts[i])])
             for i in range(w2.shape[0])]
+
+
+def decode_bytes(data: bytes, cdf: np.ndarray, ctx: Optional[np.ndarray],
+                 device=None) -> np.ndarray:
+    """Host API: one whole ilrans stream (header + words) -> its (n,) int32
+    symbols, decoded on ``device`` (the card unless the caller asks for the
+    CPU): with ``ctx`` None, ``cdf`` is the (N, L+1) table of the lanes and
+    kernel C decodes; else ``cdf`` is a shared (R, L+1) table, ``ctx`` the
+    (n,) row of each symbol, and kernel E decodes.  On the CPU the kernels'
+    plain versions run.  Raises ValueError for a corrupt stream."""
+    from ..utils.device import resolve_device
+    from . import cuda_rans
+    dev = resolve_device(device)
+    n, n_lanes, prec, off = ilrans.unpack_header(data)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    if prec != ilrans.PREC:
+        raise ValueError(f"the device decoders take precision {ilrans.PREC}, "
+                         f"not {prec}")
+    table = np.ascontiguousarray(cdf, np.int32)
+    if ctx is None and table.shape[1] > 257:
+        raise ValueError("kernel C stores u8 symbols: at most 256 a row")
+    t_steps = -(-n // n_lanes)
+    true_words = (len(data) - off) // 2
+    words = words_from_bytes(data[off:off + 2 * true_words],
+                             bucket_words(max(true_words, 2 * n_lanes)))
+    w = torch.from_numpy(words.view(np.int16)[None]).to(dev)
+    x0 = cuda_rans.split_init(w, n_lanes)
+    tb = torch.from_numpy(table).to(dev)
+    if ctx is None:
+        syms, consumed, x_fin = cuda_rans.decode(w, x0, tb, t_steps)
+        syms = syms.to(torch.int32) & 0xFF
+    else:
+        c = np.asarray(ctx, np.int32).ravel()
+        if c.size < n:
+            raise ValueError("fewer contexts than symbols")
+        c = ilrans.pad_ctx(c[:n], n_lanes)
+        c = torch.from_numpy(c.reshape(1, t_steps, n_lanes)).to(dev)
+        syms, consumed, x_fin = cuda_rans.decode_ctx(w, x0, tb, c, t_steps)
+    if int(consumed[0]) != true_words or not bool(
+            (x_fin == ilrans.STATE_LB).all()):
+        raise ValueError("corrupt ilrans stream (device decode)")
+    return syms.reshape(-1)[:n].cpu().numpy().astype(np.int32)

@@ -1,9 +1,16 @@
-"""Device-format bitstream codec for the scale-hyperprior model, on the card.
+"""Bitstream codecs for the scale-hyperprior model.
 
-The counterpart of the JAX package's ``codec/hyper_codec.py``
-(``HyperCodec.compress_batch``/``decompress_batch``, container
-``CODEC_HYPERPRIOR_DEV``, byte-identical with the JAX package's for the
-same integers):
+The counterpart of the JAX package's ``codec/hyper_codec.py``, in two
+formats, each byte-identical with the JAX package's for the same integers:
+
+* ``compress``/``decompress``: one image, container ``CODEC_HYPERPRIOR``,
+  coded on the host serial coder (``codec/rans.py``): z with the learned
+  factorized CDFs, one row a channel; round(y) over [-255, 255] with the
+  64 scale-binned Gaussian tables, the row of each symbol its scale bin
+  (``entropy.scale_to_index`` on the host); out-of-range values as an
+  escape symbol with a bypass-coded raw value inside the stream.
+* ``compress_batch``/``decompress_batch``: the device format, container
+  ``CODEC_HYPERPRIOR_DEV``, on the card:
 
 encode: x -> g_a -> y; h_a -> z_hat = round(z); sigma = h_s(z_hat);
         z_hat coded with the learned factorized CDFs, one fixed row per
@@ -23,8 +30,7 @@ device work.  Values outside the
 tables' alphabets ([-63, 63] for z, [-127, 127] for y) are coded as an
 escape symbol and carried raw in side sections (``codec/escape.py``).
 
-Not ported yet (``NotImplementedError``): the host serial format
-(``compress``/``decompress``, ``codec/rans.py``) and ``MeanScaleCodec``.
+Not ported yet (``NotImplementedError``): ``MeanScaleCodec``.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ import numpy as np
 import torch
 
 from ..models.hyperprior import ScaleHyperprior
-from . import container, cuda_rans, device_rans, entropy, escape, ilrans
+from . import (container, cuda_rans, device_rans, entropy, escape, ilrans,
+               rans)
 from .int_codec import _pack_streams, _unpack_streams, plan_streams
 
 _Z_MAX = 63       # hyper-latent support [-63, 63] + escape
+_Y_MAX = 255      # latent support [-255, 255] + escape (host serial format)
 _Y_MAX_DEV = 127  # latent support [-127, 127] + escape (device format)
 
 
@@ -69,6 +77,22 @@ def build_gaussian_cdfs(scale_table: np.ndarray, max_abs: int) -> np.ndarray:
                      for s in scale_table])
 
 
+def _code(vals: np.ndarray, ctx: np.ndarray, cdfs: np.ndarray,
+          max_abs: int) -> bytes:
+    """Integers -> serial stream: values in [-max_abs, max_abs] as symbols
+    0..2*max_abs, the rest as the escape symbol with the raw value
+    bypass-coded after it."""
+    syms = np.clip(vals, -max_abs, max_abs) + max_abs
+    syms = np.where(np.abs(vals) > max_abs, cdfs.shape[1] - 2, syms)
+    return rans.encode(syms.ravel(), ctx.ravel(), cdfs, raw=vals.ravel())
+
+
+def _decode(data: bytes, n: int, ctx: np.ndarray, cdfs: np.ndarray,
+            max_abs: int) -> np.ndarray:
+    syms, raw = rans.decode(data, n, ctx, cdfs)
+    return np.where(syms == cdfs.shape[1] - 2, raw, syms - max_abs)
+
+
 def _plan_lanes(n_pix: int, channels: int, lane_mult: int = 2,
                 n_streams: int = 8) -> Tuple[int, int, int]:
     """-> (n_streams, n_lanes, t_steps) for a (P, C) channel-fastest latent."""
@@ -93,13 +117,15 @@ def _patch_escapes(vals: torch.Tensor, raws: Sequence[bytes],
 class HyperCodec:
     """Encoder/decoder pair for ``ScaleHyperprior``, sharing its tables.
 
-    Runs on the model's device.  ``compress_batch``/``decompress_batch``
-    are the device format; the tables live on the device once built."""
+    The transforms run on the model's device.  ``compress``/``decompress``
+    are the host serial format; ``compress_batch``/``decompress_batch``
+    the device format, whose tables live on the device once built."""
 
     def __init__(self, model: ScaleHyperprior):
         self.model = model
         self.scale_table = entropy.default_scale_table()
         self.z_cdfs = build_factorized_cdfs(model)
+        self.y_cdfs = build_gaussian_cdfs(self.scale_table, _Y_MAX)
         self.y_cdfs_dev = build_gaussian_cdfs(self.scale_table, _Y_MAX_DEV)
         self._tables: Dict[Tuple, torch.Tensor] = {}
         # uploaded once: an upload from pageable memory waits for the stream
@@ -339,16 +365,46 @@ class HyperCodec:
             raise ValueError("corrupt latent stream")
         return x_hat, y_hat, z_hat
 
-    # --- not ported yet -------------------------------------------------
+    # --- host serial format ---------------------------------------------
     def compress(self, x: torch.Tensor) -> bytes:
-        raise NotImplementedError(
-            "the host serial hyperprior format (codec/rans.py) is not "
-            "ported: use compress_batch")
+        """One (1, X, Y, 3) [0, 1] image, X and Y multiples of 64 -> a
+        ``CODEC_HYPERPRIOR`` container.  The transforms run on the device;
+        scale bins and coding on the host."""
+        if x.shape[0] != 1:
+            raise ValueError("compress takes one image: use compress_batch")
+        if x.shape[1] % 64 or x.shape[2] % 64:
+            raise ValueError("hyperprior codecs need image sides divisible "
+                             "by 64 (16x analysis, 4x hyper stage)")
+        y, z, sigma = (a.cpu().numpy() for a in self.encode_parts(x))
+        _, zx, zy, zc = z.shape
+        z_ctx = np.broadcast_to(np.arange(zc, dtype=np.int32), (zx * zy, zc))
+        z_bytes = _code(z.reshape(-1, zc), z_ctx, self.z_cdfs, _Z_MAX)
+        idx = entropy.scale_to_index(sigma.ravel(), self.scale_table)
+        y_bytes = _code(y.ravel(), idx, self.y_cdfs, _Y_MAX)
+        header = struct.pack("<HHHHHH", x.shape[1], x.shape[2], zx, zy, zc,
+                             y.shape[3])
+        return container.pack(container.CODEC_HYPERPRIOR,
+                              [header, z_bytes, y_bytes])
 
-    def decompress(self, data: bytes):
-        raise NotImplementedError(
-            "the host serial hyperprior format (codec/rans.py) is not "
-            "ported: use decompress_batch")
+    def decompress(self, data: bytes) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A ``CODEC_HYPERPRIOR`` container -> (x_hat (1, X, Y, 3), y_hat
+        (1, X/16, Y/16, M)) float32 on the device."""
+        cid, sections = container.unpack(data)
+        if cid != container.CODEC_HYPERPRIOR or len(sections) != 3:
+            raise ValueError("not a serial hyperprior container")
+        header, z_bytes, y_bytes = sections
+        _, _, zx, zy, zc, _ = struct.unpack("<HHHHHH", header)
+        z_ctx = np.broadcast_to(np.arange(zc, dtype=np.int32),
+                                (zx * zy, zc)).ravel()
+        z = _decode(z_bytes, zx * zy * zc, z_ctx, self.z_cdfs, _Z_MAX)
+        z_hat = torch.from_numpy(z.reshape(1, zx, zy, zc).astype(
+            np.float32)).to(self.device)
+        sigma = self.model.scales_from_z(z_hat).cpu().numpy()
+        idx = entropy.scale_to_index(sigma.ravel(), self.scale_table)
+        y = _decode(y_bytes, sigma.size, idx, self.y_cdfs, _Y_MAX)
+        y_hat = torch.from_numpy(y.reshape(sigma.shape).astype(
+            np.float32)).to(self.device)
+        return self.model.decode_arrays(y_hat), y_hat
 
 
 class MeanScaleCodec(HyperCodec):

@@ -109,8 +109,8 @@ class PipelinedDecoder(_Pipeline):
         self.static_cdfs = static_cdfs
 
     def _schedule(self, streams: Sequence[bytes]) -> Tuple:
-        return int_codec._decompress_schedule(self.net, streams,
-                                              self.static_cdfs)
+        return int_codec._decompress_schedule(
+            self.net, int_codec._parse(streams), self.static_cdfs)
 
     def _finish(self, state: Tuple) -> torch.Tensor:
         return int_codec._decompress_drain(state)[0]

@@ -63,7 +63,7 @@ def _plan(impl, cfg: ModelConfig):
         if name in _UNPORTED:
             raise NotImplementedError(
                 f"plan entry {name!r} is not ported yet (ROADMAP.md, queue "
-                f"1 item 6: the remaining int8 op forms)")
+                f"1: the remaining int8 op forms)")
         raise ValueError(f"unknown plan entry {name!r} for layer {i}")
     return plan
 

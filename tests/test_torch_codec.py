@@ -117,13 +117,48 @@ def test_plan_streams_matches_jax(n_pix):
 
 
 def test_unported_coders_raise(net, cdfs):
-    x = torch.zeros((1, 64, 64, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        int_codec.compress_batch(net, x)
-    with pytest.raises(NotImplementedError):
-        int_codec.compress_batch(net, x, static_cdfs=cdfs, coder="native")
-    with pytest.raises(NotImplementedError):
-        int_codec.decompress_batch(net, [b""], static_cdfs=None)
+    """Every coder of the JAX package is ported: an unknown coder name
+    raises ValueError, and a container that embeds its tables decodes on
+    every coder, to the latent that the device coder's container gives."""
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, size=(1, 64, 64, 3), dtype=np.uint8))
+    for bad in ("cuda", "Native", ""):
+        with pytest.raises(ValueError, match="unknown coder"):
+            int_codec.compress_batch(net, x, static_cdfs=cdfs, coder=bad)
+        with pytest.raises(ValueError, match="unknown coder"):
+            int_codec.decompress_batch(net, [b""], coder=bad)
+    with_tables = int_codec.compress_batch(net, x)
+    _, z = int_codec.decompress_batch(
+        net, int_codec.compress_batch(net, x, static_cdfs=cdfs),
+        static_cdfs=cdfs)
+    for coder in int_codec.CODERS:
+        _, z_hat = int_codec.decompress_batch(net, with_tables, coder=coder)
+        assert torch.equal(z_hat, z)
+    with pytest.raises(ValueError, match="static tables"):
+        int_codec.decompress_batch(
+            net, int_codec.compress_batch(net, x, static_cdfs=cdfs))
+
+
+def test_lane_tables_of_two_codecs_stay_cached(net, cdfs):
+    """Two static tables used in turn: the containers stay byte-identical
+    with the native coder's, and once both are uploaded the second pass
+    makes no new lane table."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, size=(2, 64, 64, 3), dtype=np.uint8))
+    z = net.analysis(x).numpy()
+    other = int_codec._histogram_cdfs(z)
+    tables = (cdfs, other)
+    ref = [int_codec.compress_batch(net, x, static_cdfs=t, coder="native")
+           for t in tables]
+    for turn in range(2):
+        misses = int_codec._lane_cdf_tensor.misses
+        for t, want in zip(tables, ref):
+            blobs = int_codec.compress_batch(net, x, static_cdfs=t)
+            assert blobs == want
+            _, z_hat = int_codec.decompress_batch(net, blobs, static_cdfs=t)
+            np.testing.assert_array_equal(z_hat.numpy(), z)
+        if turn:
+            assert int_codec._lane_cdf_tensor.misses == misses
 
 
 def test_container_matches_jax():

@@ -220,7 +220,8 @@ def test_unported_plan_names_raise(name):
     slot = 4 if name in ("phased", "tapn") else 0
     plan = list(codec_int.DEFAULT_PLAN)
     plan[slot] = name
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="the remaining int8 op forms"):
         codec_int.eight_layers_net(tp, x, impl=plan)
     with pytest.raises(ValueError):
         codec_int.eight_layers_net(tp, x, impl=("pallas3",) * 8)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from simple_image_compression_network_tpu_torch import _build
-from simple_image_compression_network_tpu_torch.codec import hyper_codec
+from simple_image_compression_network_tpu_torch.codec import hyper_codec, rans
 from simple_image_compression_network_tpu_torch.models import (
     codec_int, hyperprior)
 from simple_image_compression_network_tpu_torch.utils import device
@@ -82,7 +82,8 @@ def test_new_modules_fall_under_the_import_probe():
                                                    port.__name__ + ".")}
     for mod in ("codec.hyper_codec", "codec.entropy", "codec.escape",
                 "models.hyperprior", "ops.gdn", "utils.msgpack_io",
-                "models.tiled"):
+                "models.tiled", "codec.rans", "codec.wavelet_codec",
+                "intnet_haar"):
         assert f"{port.__name__}.{mod}" in names
 
 
@@ -129,3 +130,42 @@ def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build()
     assert glob.glob(str(tmp_path / "build" / "*" / "*")) == []
+
+
+def test_host_coder_is_the_ports_own_build():
+    """The host rANS coder compiles the port's own source with g++ into
+    the port's build directory, and loads from there: never the JAX
+    package's ``native/`` source or library."""
+    jax_native = os.path.join(ROOT, "simple_image_compression_network_tpu",
+                              "native")
+    assert rans.SOURCE == os.path.join(PKG, "native", "rans.cpp")
+    path, _ = rans.build()
+    assert path.startswith(os.path.join(ROOT, "build", "torch_host") + os.sep)
+    lib = rans.load_native()
+    assert os.path.realpath(lib._name) == os.path.realpath(path)
+    assert not os.path.realpath(lib._name).startswith(jax_native)
+    assert os.path.basename(rans.find_cxx()) == "g++"
+
+
+def test_host_coder_build_uses_no_pytorch_header(tmp_path, monkeypatch):
+    """The source includes no PyTorch header, and the g++ command names no
+    PyTorch include directory."""
+    with open(rans.SOURCE) as f:
+        text = f.read()
+    assert "#include <torch" not in text and "ATen" not in text
+    assert "Python.h" not in text
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        raise subprocess.TimeoutExpired(cmd, 1)
+
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(rans, "_BUILD_ROOT", str(tmp_path))
+    with pytest.raises(RuntimeError, match="g\\+\\+ exceeded"):
+        rans.build()
+    (cmd,) = calls
+    assert os.path.basename(cmd[0]) == "g++"
+    assert cmd[-1] == rans.SOURCE
+    assert not any(a.startswith("-I") or "torch" in a for a in cmd[1:-1])
+    assert glob.glob(str(tmp_path / "*" / "*")) == []
