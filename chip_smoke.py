@@ -41,7 +41,19 @@ paths at full width on B random-seeded 768x512 images:
 * the host coders: containers with per-image tables on the native coder
   (decoded to the golden), the native coder with the static CDFs (the
   main path's containers byte for byte), and the serial hyperprior format
-  on one image (y_hat equal to the device format's).
+  on one image (y_hat equal to the device format's);
+* the mean-scale codec ``MeanScaleCodec`` with the trained
+  ``checkpoints/hp_meanscale_l0.01.params.msgpack``: compress_batch then
+  decompress_batch (y_hat equal to round(y - mu) + mu, kernels B to E on
+  its real latents against their plain versions, the serial format's
+  symbols against the device format's off the ties of y - mu) and both
+  hyper pipelines over it;
+* the bf16 serving path of both hyperpriors from the same checkpoints,
+  each round exact, timed and rated beside float32;
+* ``eval_codec.main`` with the argument lists of ``docs/RESULTS.md``'s
+  synthetic rows: the int8 and the four wavelet codecs' bpp and PSNR equal
+  to the JAX package's digits (``JAX_EVAL``), the float codecs' reported
+  beside their rows.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -69,6 +81,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import faulthandler
+import io
 import json
 import os
 import re
@@ -101,6 +114,50 @@ CHAIN_CYCLES = 8 * 4
 H, W = 768, 512           # the reference geometry
 HYPER_CKPT = os.path.join(ROOT, "checkpoints",
                           "hp_scale_l0.01.params.msgpack")
+MEANSCALE_CKPT = os.path.join(ROOT, "checkpoints",
+                              "hp_meanscale_l0.01.params.msgpack")
+CKPTS = {"scale": HYPER_CKPT, "meanscale": MEANSCALE_CKPT}
+# kernel launches of one hyper compress_batch + decompress_batch round
+HYPER_ROUND = {"rans_encode": 1, "rans_decode": 1, "rans_encode_ctx": 1,
+               "rans_decode_ctx": 1}
+TIE = 1e-4    # y - mu this close to a half-integer rounds on an ulp of mu
+# eval_codec's argument lists of docs/RESULTS.md's synthetic rows (4 x
+# 768x512; scripts/make_results.py), the launches of one image's round, and
+# the row's (bpp, PSNR dB): the JAX package's quality figures.
+_PER_IMAGE = {"conv3x3_s1_int8": 8, "rans_encode": 1, "rans_decode": 1}
+_SERIAL = {k: 0 for k in HYPER_ROUND}      # the serial format codes on host
+EVAL_RUNS = [
+    ("int8", ["--codec", "int8"], _PER_IMAGE, (3.610, 7.18)),
+    *((f"wavelet {p}", ["--codec", "wavelet", "--profile", p], _PER_IMAGE,
+       row) for p, row in (("haar-rgb", (2.650, 41.74)),
+                           ("haar", (2.107, 40.53)),
+                           ("haar422", (1.808, 38.04)),
+                           ("haar420", (1.262, 35.75)))),
+    ("hyperprior l0.01", ["--codec", "hyperprior", "--ckpt", HYPER_CKPT],
+     _SERIAL, (0.208, 35.05)),
+    ("meanscale l0.01", ["--codec", "meanscale", "--ckpt", MEANSCALE_CKPT],
+     _SERIAL, (0.170, 35.16)),
+]
+# (bpp, PSNR) that the JAX package's eval_codec prints for the bit-exact
+# codecs' argument lists, on a CPU: JAX_PLATFORMS=cpu python -m
+# simple_image_compression_network_tpu.eval_codec --n-synthetic 4 --codec
+# int8 (or --codec wavelet --profile P).  Its containers are the port's
+# bytes and its reconstructions the port's uint8 values, so the port must
+# print these digits.
+JAX_EVAL = {
+    "int8": (3.6101888020833335, 7.183925086621476),
+    "wavelet haar-rgb": (2.650319417317708, 41.74342114202091),
+    "wavelet haar": (2.106536865234375, 40.52986760253516),
+    "wavelet haar422": (1.8081156412760417, 38.044027110734746),
+    "wavelet haar420": (1.262481689453125, 35.74838916710105),
+}
+# The same command's digits for the float codecs (--codec hyperprior or
+# meanscale --ckpt the l0.01 checkpoint), reported beside the port's, not
+# gated: two frameworks' float transforms.
+JAX_EVAL_FLOAT = {
+    "hyperprior l0.01": (0.20795694986979166, 34.98339287235723),
+    "meanscale l0.01": (0.16977945963541666, 35.01376524154953),
+}
 # (C, N) of kernel A's eight layer forms: s2d L0-L3, d2s L4-L6, s2dtail L7
 LAYER_FORMS = [("L0 s2d", 12, 128), ("L1 s2d", 512, 128),
                ("L2 s2d", 512, 128), ("L3 s2d", 512, 192),
@@ -1516,6 +1573,232 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
     return counts
 
 
+def require_identical(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Float tensors equal value for value (``require_equal`` compares
+    integers)."""
+    if a.shape != b.shape or not torch.equal(a, b):
+        n = (a != b).sum().item() if a.shape == b.shape else "shape"
+        raise AssertionError(f"{what}: {n} values differ")
+
+
+def ties(d: torch.Tensor) -> torch.Tensor:
+    """Where d lies within ``TIE`` of a half-integer: round(d) there may
+    turn on one ulp of d."""
+    return ((d - torch.round(d)).abs() - 0.5).abs() < TIE
+
+
+def psnr_db(x_hat: torch.Tensor, x: torch.Tensor) -> float:
+    mse = torch.mean((x_hat.clamp(0, 1) - x) ** 2).item()
+    return float(10 * np.log10(1.0 / mse))
+
+
+def meanscale_path(seed: int, batch: int, dev, card: str, codec,
+                   scale_codec, errs: dict) -> dict:
+    """The mean-scale codec's compress_batch then decompress_batch at
+    768x512 with the trained checkpoint, on the images of ``hyper_path``.
+    Gates: y_hat == symbols + mu value for value and z_hat == round(h_a(y));
+    the launches {B 1, C 1, D 1, E 1}; kernels D and E on this model's real
+    y symbols and scale-bin rows, and B and C on its z, equal to their plain
+    versions; a corrupt container rejected; the serial format on one image
+    giving the device format's symbols off the ties of y - mu (counted and
+    printed: an ulp of y or mu between the B = 1 and B = 2 programs may
+    decide them).  Reported: bytes, bpp and PSNR beside the scale model's, encode
+    and decode ms, peak memory.  Returns the launch counts."""
+    from simple_image_compression_network_tpu_torch.codec import (
+        container, cuda_rans, escape, hyper_codec)
+    x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
+    x = x.to(torch.float32) / 255.0
+
+    torch.cuda.reset_peak_memory_stats()
+    codec.decompress_batch(codec.compress_batch(x))              # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    blobs = codec.compress_batch(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_hat, y_hat, z_hat = codec.decompress_batch(blobs, return_z=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_exact("meanscale", HYPER_ROUND)
+    mem = torch.cuda.max_memory_allocated()
+
+    sym, z, mu, sigma = codec.encode_arrays(x)
+    require_identical("meanscale y_hat == round(y - mu) + mu", y_hat,
+                      sym.to(torch.float32) + mu)
+    require_equal("meanscale z_hat == round(h_a(y))", z_hat, z)
+    if x_hat.shape != (batch, H, W, 3) or not bool(
+            torch.isfinite(x_hat).all()):
+        raise AssertionError("meanscale x_hat: shape or non-finite values")
+
+    b, yx, yy, yc = sym.shape
+    s_y, nl_y, t_y = hyper_codec._plan_lanes(yx * yy, yc)
+    ys = escape.to_symbols(sym, hyper_codec._Y_MAX_DEV).reshape(
+        b * s_y, t_y, nl_y).contiguous()
+    ctx = codec._scale_ctx(sigma).reshape(b * s_y, t_y, nl_y).contiguous()
+    n_words = check_rans(
+        "kernels D, E on the mean-scale y", cuda_rans.encode_batch_compact_ctx,
+        cuda_rans.decode_ctx, cuda_rans.encode_batch_compact_ctx_plain,
+        cuda_rans.decode_ctx_plain, ys, (codec._y_table(), ctx), t_y, nl_y,
+        errs, ("rans_encode_ctx", "rans_decode_ctx"))
+    _, zx, zy, zc = z.shape
+    s_z, nl_z, t_z = hyper_codec._plan_lanes(zx * zy, zc)
+    zs = escape.to_symbols(z, hyper_codec._Z_MAX).to(torch.int8).reshape(
+        b * s_z, t_z, nl_z).contiguous()
+    z_words = check_rans(
+        "kernels B, C on the mean-scale z", cuda_rans.encode_batch_compact,
+        cuda_rans.decode, cuda_rans.encode_batch_compact_plain,
+        cuda_rans.decode_plain, zs, (codec._z_lane_cdf(nl_z),), t_z, nl_z,
+        errs, ("rans_encode", "rans_decode"))
+    rows = int(ctx.unique().numel())
+    log(f"meanscale: y_hat == symbols + mu, z_hat == round(h_a(y)); kernels "
+        f"D, E == plain on the real y (S={b * s_y} t={t_y} N={nl_y}, "
+        f"{rows} of 64 scale-bin rows, {int(n_words.sum())} words; symbols "
+        f"in [{int(sym.min())}, {int(sym.max())}]), kernels B, C == plain "
+        f"on its z ({int(z_words.sum())} words)")
+
+    _, sections = container.unpack(blobs[-1])
+    y_end = len(blobs[-1]) - len(sections[3]) - len(sections[4])
+    bad = bytearray(blobs[-1])
+    bad[y_end - len(sections[2]) // 2] ^= 0xFF
+    try:
+        codec.decompress_batch(blobs[:-1] + [bytes(bad)])
+    except ValueError as e:
+        log(f"corrupt meanscale container rejected: {e}")
+    else:
+        raise AssertionError("a corrupt meanscale container decoded")
+
+    x1 = x[:1]
+    data = codec.compress(x1)
+    _, y_serial = codec.decompress(data)
+    sym1, _, mu1, _ = codec.encode_arrays(x1)
+    require_identical("meanscale serial y_hat == round(y - mu) + mu",
+                      y_serial, sym1.to(torch.float32) + mu1)
+    y1, _ = codec.model.analysis_arrays(x1)
+    y2, _ = codec.model.analysis_arrays(x)
+    tie = ties(y1 - mu1) | ties(y1 - mu[:1]) | ties(y2[:1] - mu[:1])
+    off = (sym1 != sym[:1]) & ~tie
+    if bool(off.any()):
+        raise AssertionError(f"meanscale serial (B=1) symbols differ from "
+                             f"the device format's (B=2) at "
+                             f"{int(off.sum())} positions off the ties")
+    log(f"meanscale serial format (B=1) == the device format's (B=2) "
+        f"symbols off the ties: {int(tie.sum())} positions within {TIE} of "
+        f"a half, {int((sym1 != sym[:1]).sum())} of them differ; |mu(B=1) - "
+        f"mu(B=2)| max {(mu1 - mu[:1]).abs().max().item()}")
+
+    s_blobs = scale_codec.compress_batch(x)
+    s_hat, _ = scale_codec.decompress_batch(s_blobs)
+    n_bytes, s_bytes = (sum(len(bl) for bl in bs) for bs in (blobs, s_blobs))
+    px = batch * H * W
+    mp = px / 1e6
+    log(f"meanscale path [{card}]: B={batch} 768x512, {n_bytes} container "
+        f"bytes, {8 * n_bytes / px} bpp, PSNR {psnr_db(x_hat, x)} dB; the "
+        f"scale model on the same images: {s_bytes} bytes, "
+        f"{8 * s_bytes / px} bpp, PSNR {psnr_db(s_hat, x)} dB")
+    log(f"meanscale path [{card}]: encode {(t1 - t0) * 1e3} ms "
+        f"({mp / (t1 - t0)} MP/s), decode {(t2 - t1) * 1e3} ms "
+        f"({mp / (t2 - t1)} MP/s), host clock; median of {MEDIAN_CALLS} "
+        f"more: encode {median_ms(lambda: codec.compress_batch(x))} ms, "
+        f"decode {median_ms(lambda: codec.decompress_batch(blobs))} ms; "
+        f"peak device memory {mem} bytes")
+    return counts
+
+
+def bf16_path(seed: int, batch: int, dev, card: str, codecs: dict) -> dict:
+    """The bf16 serving path of both hyperpriors, built from the same
+    checkpoints as their float32 codecs (``codecs``, by family): one
+    counted round each on the images of ``hyper_path``, gated exact (y_hat
+    == symbols (+ mu), z_hat == round(h_a(y))) with the launches {B 1, C 1,
+    D 1, E 1}.  Reported beside float32: encode, decode and g_s ms, bpp and
+    PSNR.  Returns the launch counts by path."""
+    x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
+    x = x.to(torch.float32) / 255.0
+    px = batch * H * W
+    counts = {}
+    for family, c32 in codecs.items():
+        path = f"bf16 {family}"
+        c16 = type(c32).from_checkpoint(CKPTS[family], device=dev,
+                                        dtype=torch.bfloat16)
+        c16.decompress_batch(c16.compress_batch(x))              # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        blobs = c16.compress_batch(x)
+        x_hat, y_hat, z_hat = c16.decompress_batch(blobs, return_z=True)
+        torch.cuda.synchronize()
+        counts[path] = read_exact(path, HYPER_ROUND)
+        sym, z, mu, _ = c16.encode_arrays(x)
+        require_identical(f"{path} y_hat == symbols (+ mu)", y_hat,
+                          sym.to(torch.float32) + (0 if mu is None else mu))
+        require_equal(f"{path} z_hat == round(h_a(y))", z_hat, z)
+        if x_hat.dtype != torch.float32 or not bool(
+                torch.isfinite(x_hat).all()):
+            raise AssertionError(f"{path}: x_hat {x_hat.dtype} or "
+                                 f"non-finite values")
+        b32 = c32.compress_batch(x)
+        x32, y32 = c32.decompress_batch(b32)
+        p16, p32 = psnr_db(x_hat, x), psnr_db(x32, x)
+        n16, n32 = (sum(len(bl) for bl in bs) for bs in (blobs, b32))
+        ms = {}
+        for name, c, bl, yh in (("bf16", c16, blobs, y_hat),
+                                ("float32", c32, b32, y32)):
+            ms[name] = (median_ms(lambda: c.compress_batch(x)),
+                        median_ms(lambda: c.decompress_batch(bl)),
+                        median_ms(lambda: c.model.decode_arrays(yh)),
+                        median_ms(lambda: c.model.analysis_arrays(x)),
+                        median_ms(lambda: c._prior_from_z(z_hat)))
+        log(f"{path}: exact (y_hat == symbols{' + mu' if mu is not None else ''}"
+            f", z_hat == round(h_a(y)))")
+        log(f"{path} [{card}]: B={batch} 768x512, {n16} container bytes, "
+            f"{8 * n16 / px} bpp, PSNR {p16} dB; float32: {n32} bytes, "
+            f"{8 * n32 / px} bpp, PSNR {p32} dB; PSNR bf16 - float32 "
+            f"{p16 - p32} dB")
+        for name, (enc, dec, g_s, g_a, h_s) in ms.items():
+            log(f"{path} [{card}]: {name}, median of {MEDIAN_CALLS} (host "
+                f"clock): encode {enc} ms, decode {dec} ms; g_s {g_s} ms, "
+                f"g_a + h_a {g_a} ms, h_s (image by image) {h_s} ms")
+    return counts
+
+
+def eval_path(card: str) -> dict:
+    """``eval_codec.main`` with the argument lists that made
+    ``docs/RESULTS.md``'s synthetic rows (4 x 768x512), each with its
+    launch counts read right after (the hyper codecs' serial format codes
+    on the host: no rANS kernel).  The bit-exact codecs' bpp and PSNR must
+    equal the JAX package's ``eval_codec`` on the same argument list to the
+    last digit (``JAX_EVAL``); the float codecs' are reported beside their
+    rows and the JAX package's digits (``JAX_EVAL_FLOAT``).  Returns the
+    counts by path."""
+    from simple_image_compression_network_tpu_torch import eval_codec
+    counts = {}
+    for name, argv, per_image, row in EVAL_RUNS:
+        path = f"eval {name}"
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = eval_codec.main(["--n-synthetic", "4"] + argv)
+        torch.cuda.synchronize()
+        counts[path] = read_exact(path, {k: 4 * v
+                                         for k, v in per_image.items()})
+        got = (res["bpp"], res["psnr"])
+        log(f"{path} [{card}]: {out.getvalue().strip()}; docs/RESULTS.md "
+            f"(the JAX package's figure): bpp {row[0]}, PSNR {row[1]} dB; "
+            f"difference bpp {got[0] - row[0]:+.4f}, PSNR "
+            f"{got[1] - row[1]:+.3f} dB")
+        if name in JAX_EVAL:
+            if got != JAX_EVAL[name]:
+                raise AssertionError(f"{path}: bpp, PSNR {got} != the JAX "
+                                     f"package's {JAX_EVAL[name]}")
+            log(f"{path}: bpp and PSNR == the JAX package's eval_codec "
+                f"{JAX_EVAL[name]}")
+        else:
+            bpp, psnr = JAX_EVAL_FLOAT[name]
+            log(f"{path}: the JAX package's eval_codec on a CPU printed bpp "
+                f"{bpp}, PSNR {psnr} dB; difference bpp {got[0] - bpp}, "
+                f"PSNR {got[1] - psnr} dB")
+    return counts
+
+
 def chain_path(batch: int, golden: dict, card: str) -> dict:
     """``DeviceChain`` at 768x512: built (one eager run of each program,
     then its capture as a CUDA graph) with the launch counts read around
@@ -1651,34 +1934,28 @@ def pipelines_path(seed: int, batch: int, golden: dict, codec,
     dec = pipeline.PipelinedDecoder(net, cdfs, depth=PIPE_DEPTH)
     h_enc = pipeline.HyperPipelinedEncoder(codec, depth=PIPE_DEPTH)
     h_dec = pipeline.HyperPipelinedDecoder(codec, depth=PIPE_DEPTH)
-
-    def run(pipe, items):
-        for item in items:
-            pipe.submit(item)
-        return pipe.drain()
-
     paths = {
-        "int8 encode": (lambda: run(enc, xs), lambda: [
+        "int8 encode": (lambda: run_pipe(enc, xs), lambda: [
             int_codec.compress_batch(net, x, static_cdfs=cdfs) for x in xs]),
-        "int8 decode": (lambda: run(dec, blobs), lambda: [
+        "int8 decode": (lambda: run_pipe(dec, blobs), lambda: [
             int_codec.decompress_batch(net, bl, static_cdfs=cdfs)[0]
             for bl in blobs]),
-        "hyper encode": (lambda: run(h_enc, xf),
+        "hyper encode": (lambda: run_pipe(h_enc, xf),
                          lambda: [codec.compress_batch(x) for x in xf]),
-        "hyper decode": (lambda: run(h_dec, h_blobs), lambda: [
+        "hyper decode": (lambda: run_pipe(h_dec, h_blobs), lambda: [
             codec.decompress_batch(bl) for bl in h_blobs]),
     }
     counts = {}
     reset_counts()
-    blobs = run(enc, xs)
-    run(dec, blobs)
+    blobs = run_pipe(enc, xs)
+    run_pipe(dec, blobs)
     torch.cuda.synchronize()
     counts["pipelined int8"] = read_exact("pipelined int8", {
         "conv3x3_s1_int8": 8 * N_PIPE, "rans_encode": N_PIPE,
         "rans_decode": N_PIPE})
     reset_counts()
-    h_blobs = run(h_enc, xf)
-    run(h_dec, h_blobs)
+    h_blobs = run_pipe(h_enc, xf)
+    run_pipe(h_dec, h_blobs)
     torch.cuda.synchronize()
     counts["pipelined hyper"] = read_exact("pipelined hyper", {
         "rans_encode": N_PIPE, "rans_decode": N_PIPE,
@@ -1702,7 +1979,7 @@ def pipelines_path(seed: int, batch: int, golden: dict, codec,
         pipe._finish = timed("finish", pipe._finish)
         device_rans.host_array = timed("wait", wait)
         try:
-            wall_ms(lambda: run(pipe, items))
+            wall_ms(lambda: run_pipe(pipe, items))
         finally:
             del pipe._schedule, pipe._finish
             device_rans.host_array = wait
@@ -1710,80 +1987,148 @@ def pipelines_path(seed: int, batch: int, golden: dict, codec,
         ms["finish"] -= ms["wait"]
         return ms
 
-    def never_waits(name: str, pipe, item) -> None:
-        """``submit`` on an empty pipeline behind a queued spin kernel must
-        return while the spin still runs: it waits on no device work."""
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        spun = torch.cuda.Event()
-        spun.record()
-        t0 = time.perf_counter()
-        pipe.submit(item)
-        host = (time.perf_counter() - t0) * 1e3
-        waited = spun.query()
-        pipe.drain()
-        log(f"pipelined {name}: submit returned after {host:.3f} ms with "
-            f"the queued spin {'done' if waited else 'still running'}")
-        if waited:
-            raise AssertionError(f"pipelined {name}: submit waited for "
-                                 f"queued device work")
-
-    def same(a, b) -> bool:
-        if isinstance(a, (list, tuple)):
-            return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
-        if isinstance(a, torch.Tensor):
-            return torch.equal(a, b)
-        return a == b
-
     pipes = {"int8 encode": (enc, xs), "int8 decode": (dec, blobs),
              "hyper encode": (h_enc, xf), "hyper decode": (h_dec, h_blobs)}
     for name, (pipe, items) in pipes.items():
         never_waits(name, pipe, items[0])
-    mp = N_PIPE * batch * H * W / 1e3          # megapixels per ms -> MP/s
     for name, (piped, sync) in paths.items():
-        times, ref = {"sync": [], "pipelined": []}, None
-        for kind in ("sync", "pipelined") * PIPE_TURNS:
-            ms, out = wall_ms(sync if kind == "sync" else piped)
-            times[kind].append(ms)
-            if ref is None:
-                ref = out
-            elif not same(out, ref):
-                raise AssertionError(f"{kind} {name} differs from the first "
-                                     f"sync run")
-        s, p = (float(np.median(times[k])) for k in ("sync", "pipelined"))
-        log(f"pipelined [{card}]: {name}, {N_PIPE} batches of B={batch} "
-            f"at depth {PIPE_DEPTH} == the sync calls; ms of each turn "
-            f"(host clock): sync {times['sync']}, pipelined "
-            f"{times['pipelined']}; median {s:.3f} against {p:.3f} ms "
-            f"({mp / s:.1f} against {mp / p:.1f} MP/s, {s / p:.3f}x)")
+        s = time_turns(name, piped, sync, batch, card)
         ms = breakdown(*pipes[name])
         log(f"pipelined [{card}]: {name}, host ms a batch (host clock, one "
             f"run): schedule {ms['schedule']:.4f}, wait for its copy "
             f"{ms['wait']:.4f}, rest of the drain {ms['finish']:.4f}; the "
             f"sync call {s / N_PIPE:.4f}")
 
-    # h_s under cuDNN may choose other algorithms at another batch size: a
-    # sigma across a bin edge desyncs the y streams.  Counted, not failed.
+    alone_and_together("hyper", codec, h_blobs, batch)
+    return counts
+
+
+def run_pipe(pipe, items) -> list:
+    for item in items:
+        pipe.submit(item)
+    return pipe.drain()
+
+
+def never_waits(name: str, pipe, item) -> None:
+    """``submit`` on an empty pipeline behind a queued spin kernel must
+    return while the spin still runs: it waits on no device work."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    t0 = time.perf_counter()
+    pipe.submit(item)
+    host = (time.perf_counter() - t0) * 1e3
+    waited = spun.query()
+    pipe.drain()
+    log(f"pipelined {name}: submit returned after {host:.3f} ms with "
+        f"the queued spin {'done' if waited else 'still running'}")
+    if waited:
+        raise AssertionError(f"pipelined {name}: submit waited for "
+                             f"queued device work")
+
+
+def same(a, b) -> bool:
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def time_turns(name: str, piped, sync, batch: int, card: str) -> float:
+    """Wall time of ``N_PIPE`` batches through a pipeline against the sync
+    calls, in turns sync, pipelined, ``PIPE_TURNS`` times, every result
+    equal to the first sync run's; every turn printed and the medians
+    compared.  Returns the sync calls' median ms."""
+    mp = N_PIPE * batch * H * W / 1e3          # megapixels per ms -> MP/s
+    times, ref = {"sync": [], "pipelined": []}, None
+    for kind in ("sync", "pipelined") * PIPE_TURNS:
+        ms, out = wall_ms(sync if kind == "sync" else piped)
+        times[kind].append(ms)
+        if ref is None:
+            ref = out
+        elif not same(out, ref):
+            raise AssertionError(f"{kind} {name} differs from the first "
+                                 f"sync run")
+    s, p = (float(np.median(times[k])) for k in ("sync", "pipelined"))
+    log(f"pipelined [{card}]: {name}, {N_PIPE} batches of B={batch} "
+        f"at depth {PIPE_DEPTH} == the sync calls; ms of each turn "
+        f"(host clock): sync {times['sync']}, pipelined "
+        f"{times['pipelined']}; median {s:.3f} against {p:.3f} ms "
+        f"({mp / s:.1f} against {mp / p:.1f} MP/s, {s / p:.3f}x)")
+    return s
+
+
+def alone_and_together(tag: str, codec, h_blobs: list, batch: int) -> None:
+    """The hyper containers of all batches decoded one by one (B = 1) and
+    as one batch, against the B-image decodes: reported, not gated.  The
+    codecs run h_s image by image, so that no algorithm cuDNN picks for
+    another batch size can move a sigma across a bin edge (which desyncs
+    the y streams: a corrupt-stream error) or the mean-scale model's mu,
+    which y_hat adds to the symbols (the largest move is printed)."""
     y_ref = [codec.decompress_batch(bl)[1] for bl in h_blobs]
     flat = [bl for group in h_blobs for bl in group]
-    alone = 0
+    alone, decoded, moved = 0, 0, 0.0
     for i, blob in enumerate(flat):
+        ref = y_ref[i // batch][i % batch]
         try:
-            alone += int(torch.equal(codec.decompress_batch([blob])[1][0],
-                                     y_ref[i // batch][i % batch]))
+            y1 = codec.decompress_batch([blob])[1][0]
         except ValueError as e:
-            log(f"hyper image {i} decoded alone: {e}")
+            log(f"{tag} image {i} decoded alone: {e}")
+            continue
+        decoded += 1
+        alone += int(torch.equal(y1, ref))
+        moved = max(moved, (y1 - ref).abs().max().item())
     try:
         y_all = codec.decompress_batch(flat)[1]
         together = sum(int(torch.equal(y_all[i], y_ref[i // batch][i % batch]))
                        for i in range(len(flat)))
     except ValueError as e:
-        log(f"hyper: the {len(flat)} containers as one batch: {e}")
+        log(f"{tag}: the {len(flat)} containers as one batch: {e}")
         together = 0
-    log(f"hyper: of {len(flat)} containers of the pipelines' B={batch} "
+    log(f"{tag}: of {len(flat)} containers of the pipelines' B={batch} "
         f"batches, {alone} decoded alone (B=1) and {together} decoded as one "
-        f"batch of {len(flat)} give the B={batch} decode's y_hat")
-    return counts
+        f"batch of {len(flat)} give the B={batch} decode's y_hat; "
+        f"{decoded} decoded alone without a stream error, their y_hat at "
+        f"most {moved} from it")
+
+
+def meanscale_pipelines(seed: int, batch: int, codec, card: str) -> dict:
+    """The two hyper pipelines over ``MeanScaleCodec``'s schedule and drain
+    phases, on the images of ``pipelines_path``: the launches counted right
+    after, every result equal to the sync calls', each ``submit`` waiting on
+    no queued device work, the wall times against the sync calls, and the
+    containers decoded alone and as one batch (reported).  Returns the
+    counts."""
+    from simple_image_compression_network_tpu_torch.codec import pipeline
+    dev = codec.device
+    xf = [torch.from_numpy(make_images(seed + 10 + k, batch)).to(dev)
+          .to(torch.float32) / 255.0 for k in range(N_PIPE)]
+    enc = pipeline.HyperPipelinedEncoder(codec, depth=PIPE_DEPTH)
+    dec = pipeline.HyperPipelinedDecoder(codec, depth=PIPE_DEPTH)
+    reset_counts()
+    blobs = run_pipe(enc, xf)
+    outs = run_pipe(dec, blobs)
+    torch.cuda.synchronize()
+    counts = read_exact("pipelined meanscale",
+                        {k: N_PIPE * v for k, v in HYPER_ROUND.items()})
+    sync = [codec.compress_batch(x) for x in xf]
+    if blobs != sync:
+        raise AssertionError("pipelined meanscale encode differs from the "
+                             "sync calls")
+    if not same(outs, [codec.decompress_batch(bl) for bl in sync]):
+        raise AssertionError("pipelined meanscale decode differs from the "
+                             "sync calls")
+    never_waits("meanscale encode", enc, xf[0])
+    never_waits("meanscale decode", dec, blobs[0])
+    time_turns("meanscale encode", lambda: run_pipe(enc, xf),
+               lambda: [codec.compress_batch(x) for x in xf], batch, card)
+    time_turns("meanscale decode", lambda: run_pipe(dec, blobs),
+               lambda: [codec.decompress_batch(bl) for bl in blobs], batch,
+               card)
+    alone_and_together("meanscale", codec, blobs, batch)
+    return {"pipelined meanscale": counts}
 
 
 MEDIAN_CALLS = 5
@@ -2067,7 +2412,8 @@ def hyper_breakdown(seed: int, batch: int, dev, codec) -> None:
     stages = [
         ("compress_batch", lambda: codec.compress_batch(x)),
         ("  g_a + h_a (analysis_arrays)", lambda: model.analysis_arrays(x)),
-        ("  h_s (scales_from_z)", lambda: model.scales_from_z(z)),
+        ("  h_s, image by image (_prior_from_z)",
+         lambda: codec._prior_from_z(z)),
         ("  scale bins", lambda: codec._scale_ctx(sigma)),
         ("  entropy_encode (B, D, fetches, packing)",
          lambda: codec.entropy_encode(yi, zi, ctx, H, W)),
@@ -2127,12 +2473,15 @@ def main() -> int:
     with phase("hyperprior checkpoint and tables"):
         from simple_image_compression_network_tpu_torch.codec import (
             hyper_codec)
-        if not os.path.exists(HYPER_CKPT):
-            raise FileNotFoundError(
-                f"{HYPER_CKPT} is missing: the hyper path needs it "
-                f"(.chiprunignore must let this one checkpoint through)")
+        for path in CKPTS.values():
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"{path} is missing: the hyper paths need it "
+                    f"(.chiprunignore must let it through)")
         codec = hyper_codec.HyperCodec.from_checkpoint(HYPER_CKPT,
                                                        device=dev)
+        ms_codec = hyper_codec.MeanScaleCodec.from_checkpoint(
+            MEANSCALE_CKPT, device=dev)
 
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
@@ -2149,17 +2498,28 @@ def main() -> int:
         dense = dense_encode_path(args.batch, golden)
     with phase("hyper path at 768x512"):
         hyper = hyper_path(args.seed, args.batch, dev, smi, codec)
+    with phase("mean-scale hyper path at 768x512"):
+        meanscale = meanscale_path(args.seed, args.batch, dev, smi, ms_codec,
+                                   codec, errs)
+    with phase("bf16 serving path of both hyperpriors at 768x512"):
+        bf16 = bf16_path(args.seed, args.batch, dev, smi,
+                         {"scale": codec, "meanscale": ms_codec})
     with phase("device chain at 768x512"):
         chain = chain_path(args.batch, golden, smi)
     with phase("pipelined codecs at 768x512"):
         piped = pipelines_path(args.seed, args.batch, golden, codec, smi)
+        piped.update(meanscale_pipelines(args.seed, args.batch, ms_codec,
+                                         smi))
     with phase("wavelet codec at 768x512"):
         wavelet = wavelet_path(args.seed, args.batch, dev, smi, errs)
     with phase("host coders and per-image tables at 768x512"):
         host = host_coders_path(args.seed, args.batch, golden, codec, smi)
+    with phase("eval_codec entry point, 4 synthetic 768x512 images"):
+        evals = eval_path(smi)
     del golden
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
-             "device chain": chain, **piped, **wavelet, **host}
+             "meanscale": meanscale, **bf16, "device chain": chain, **piped,
+             **wavelet, **host, **evals}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

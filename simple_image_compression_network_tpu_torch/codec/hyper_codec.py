@@ -1,4 +1,4 @@
-"""Bitstream codecs for the scale-hyperprior model.
+"""Bitstream codecs for the scale- and mean-scale-hyperprior models.
 
 The counterpart of the JAX package's ``codec/hyper_codec.py``, in two
 formats, each byte-identical with the JAX package's for the same integers:
@@ -12,15 +12,18 @@ formats, each byte-identical with the JAX package's for the same integers:
 * ``compress_batch``/``decompress_batch``: the device format, container
   ``CODEC_HYPERPRIOR_DEV``, on the card:
 
-encode: x -> g_a -> y; h_a -> z_hat = round(z); sigma = h_s(z_hat);
+encode: x -> g_a -> y; h_a -> z_hat = round(z); (mu,) sigma = h_s(z_hat);
         z_hat coded with the learned factorized CDFs, one fixed row per
-        lane (kernel B); round(y) coded with the 64 scale-binned Gaussian
-        tables, the row of each symbol picked by its scale bin (kernel D).
-decode: z from its streams (kernel C) -> sigma -> scale bins -> y from its
-        streams (kernel E) -> g_s(y_hat).
+        lane (kernel B); round(y) (mean-scale: round(y - mu)) coded with
+        the 64 scale-binned Gaussian tables, the row of each symbol picked
+        by its scale bin (kernel D).
+decode: z from its streams (kernel C) -> (mu,) sigma -> scale bins -> y
+        from its streams (kernel E) (mean-scale: + mu, in float32) ->
+        g_s(y_hat).
 
-Both sides derive the scale bins from the same z_hat with the same program,
-so y_hat equals the encoder's rounded y exactly.  Each direction is a
+Both sides derive the scale bins (and mu) from the same z_hat with the
+same program (``_prior_from_z``), so y_hat equals the encoder's rounded y
+(or its symbols plus mu) exactly.  Each direction is a
 schedule phase, which enqueues the device work and an asynchronous copy of
 what the host needs, and a drain phase, which waits for that copy alone and
 packs or checks (``_compress_schedule``/``_compress_drain``,
@@ -30,7 +33,10 @@ device work.  Values outside the
 tables' alphabets ([-63, 63] for z, [-127, 127] for y) are coded as an
 escape symbol and carried raw in side sections (``codec/escape.py``).
 
-Not ported yet (``NotImplementedError``): ``MeanScaleCodec``.
+``HyperCodec`` serves ``ScaleHyperprior``, ``MeanScaleCodec`` serves
+``MeanScaleHyperprior``; either model may run in bf16 (the serving fast
+path), whose codec is consistent with itself only: its containers decode
+with the bf16 model, not with the float32 one.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.hyperprior import ScaleHyperprior
+from ..models.hyperprior import MeanScaleHyperprior, ScaleHyperprior
 from . import (container, cuda_rans, device_rans, entropy, escape, ilrans,
                rans)
 from .int_codec import _pack_streams, _unpack_streams, plan_streams
@@ -114,12 +120,26 @@ def _patch_escapes(vals: torch.Tensor, raws: Sequence[bytes],
     return torch.from_numpy(out.astype(np.int32)).to(vals.device)
 
 
+def _image_by_image(fn: Callable, z_hat: torch.Tensor) -> list:
+    """fn (h_s) on each image of z_hat alone.  Both ends must derive
+    bitwise-equal scales (and means) from an image's z_hat, whatever batch
+    it was encoded or is decoded in, and cuDNN and oneDNN choose their
+    algorithms, and so their sums' order, by shape: on the card the
+    mean-scale h_s at B = 1 and 8 put sigmas of B = 2 containers across
+    scale-bin edges.  At B = 1 the program is one, whatever the batch."""
+    return [fn(z_hat[i:i + 1]) for i in range(z_hat.shape[0])]
+
+
 class HyperCodec:
     """Encoder/decoder pair for ``ScaleHyperprior``, sharing its tables.
+    The model's prior enters through one hook, ``_prior_from_z``, which
+    ``MeanScaleCodec`` overrides.
 
     The transforms run on the model's device.  ``compress``/``decompress``
     are the host serial format; ``compress_batch``/``decompress_batch``
     the device format, whose tables live on the device once built."""
+
+    model_cls = ScaleHyperprior     # what ``from_checkpoint`` loads
 
     def __init__(self, model: ScaleHyperprior):
         self.model = model
@@ -138,9 +158,12 @@ class HyperCodec:
         self._mxb_y: Optional[int] = None
 
     @classmethod
-    def from_checkpoint(cls, path: str, device=None) -> "HyperCodec":
-        """A codec for the JAX package's ``hp_scale_*.params.msgpack``."""
-        return cls(ScaleHyperprior.from_checkpoint(path, device=device))
+    def from_checkpoint(cls, path: str, device=None,
+                        dtype: torch.dtype = torch.float32) -> "HyperCodec":
+        """A codec for the JAX package's ``hp_scale_*.params.msgpack``
+        (``MeanScaleCodec``: ``hp_meanscale_*``), its model in ``dtype``."""
+        return cls(cls.model_cls.from_checkpoint(path, device=device,
+                                                 dtype=dtype))
 
     @property
     def device(self) -> torch.device:
@@ -170,16 +193,32 @@ class HyperCodec:
                                  sigma.to(torch.float32).contiguous())
         return idx.clamp(0, len(self.scale_table) - 1).to(torch.int32)
 
+    def _prior_from_z(self, z_hat: torch.Tensor
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """-> (mu, or None for the scale model, sigma) from z_hat (B, zx,
+        zy, N) float32: h_s image by image (``_image_by_image``)."""
+        return None, torch.cat(_image_by_image(self.model.scales_from_z,
+                                               z_hat))
+
     # --- encode ---------------------------------------------------------
+    def encode_arrays(self, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor], torch.Tensor]:
+        """x (B, X, Y, 3) in [0, 1] -> (symbols int32, z_hat int32, mu
+        float32 or None, sigma float32), NHWC on the device.  The symbols
+        are round(y), or round(y - mu) (half to even, as ``jnp.round``).
+        mu and sigma come from the quantized z_hat through
+        ``_prior_from_z``, the decoder's own program."""
+        y, z_hat = self.model.analysis_arrays(x)
+        mu, sigma = self._prior_from_z(z_hat)
+        sym = torch.round(y if mu is None else y - mu)
+        return sym.to(torch.int32), z_hat.to(torch.int32), mu, sigma
+
     def encode_parts(self, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x (B, X, Y, 3) in [0, 1] -> (round(y) int32, z_hat int32,
-        sigma float32), NHWC on the device.  sigma comes from the quantized
-        z_hat through ``scales_from_z``, the decoder's own program."""
-        y, z_hat = self.model.analysis_arrays(x)
-        sigma = self.model.scales_from_z(z_hat)
-        return (torch.round(y).to(torch.int32), z_hat.to(torch.int32),
-                sigma)
+        """``encode_arrays`` without mu: (symbols, z_hat, sigma)."""
+        sym, z, _, sigma = self.encode_arrays(x)
+        return sym, z, sigma
 
     def compress_batch(self, x: torch.Tensor) -> List[bytes]:
         """(B, X, Y, 3) [0, 1] images, X and Y multiples of 64 -> B
@@ -339,13 +378,16 @@ class HyperCodec:
         z_hat = _patch_escapes(z_vals, [m[3] for m in metas],
                                _Z_MAX).to(torch.float32)
 
-        ctx_y = self._scale_ctx(self.model.scales_from_z(z_hat))
+        mu, sigma = self._prior_from_z(z_hat)
+        ctx_y = self._scale_ctx(sigma)
         y_syms, y_cons, y_fin = cuda_rans.decode_ctx(
             yw, cuda_rans.split_init(yw, nl_y), self._y_table(),
             ctx_y.reshape(b * s_y, t_y, nl_y).contiguous(), t_y)
         y_vals = y_syms.reshape(b, yx, yy, yc) - _Y_MAX_DEV
         y_hat = _patch_escapes(y_vals, [m[4] for m in metas],
                                _Y_MAX_DEV).to(torch.float32)
+        if mu is not None:
+            y_hat = y_hat + mu
         x_hat = self.model.decode_arrays(y_hat)
 
         lb = ilrans.STATE_LB
@@ -399,16 +441,25 @@ class HyperCodec:
         z = _decode(z_bytes, zx * zy * zc, z_ctx, self.z_cdfs, _Z_MAX)
         z_hat = torch.from_numpy(z.reshape(1, zx, zy, zc).astype(
             np.float32)).to(self.device)
-        sigma = self.model.scales_from_z(z_hat).cpu().numpy()
+        mu, sigma = self._prior_from_z(z_hat)
+        sigma = sigma.cpu().numpy()
         idx = entropy.scale_to_index(sigma.ravel(), self.scale_table)
         y = _decode(y_bytes, sigma.size, idx, self.y_cdfs, _Y_MAX)
         y_hat = torch.from_numpy(y.reshape(sigma.shape).astype(
             np.float32)).to(self.device)
+        if mu is not None:
+            y_hat = y_hat + mu
         return self.model.decode_arrays(y_hat), y_hat
 
 
 class MeanScaleCodec(HyperCodec):
-    """Not ported yet: the mean-scale hyperprior's codec."""
+    """Codec for ``MeanScaleHyperprior``: the symbols are round(y - mu),
+    zero-mean; the decoder adds mu back, in float32, before g_s.  The
+    containers are the scale codec's formats: they carry no model id."""
 
-    def __init__(self, model):
-        raise NotImplementedError("MeanScaleCodec is not ported yet")
+    model_cls = MeanScaleHyperprior
+
+    def _prior_from_z(self, z_hat: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu, sigma = zip(*_image_by_image(self.model.params_from_z, z_hat))
+        return torch.cat(mu), torch.cat(sigma)

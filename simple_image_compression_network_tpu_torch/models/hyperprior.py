@@ -1,22 +1,29 @@
-"""The scale-hyperprior autoencoder (Balle 2018 style), forward only.
+"""The (mean-)scale-hyperprior autoencoders (Balle 2018, Minnen 2018
+without the context model), forward only.
 
 The port of the JAX package's ``models/hyperprior.py``: analysis g_a
 (4x 5x5/s2 conv, GDN), synthesis g_s (4x 5x5/s2 transposed conv, IGDN),
-hyper-analysis h_a and hyper-synthesis h_s (per-latent Gaussian scales),
-and the factorized bottleneck on z.  N = 128 internal and M = 192 latent
-channels at full width.
+hyper-analysis h_a, hyper-synthesis h_s (per-latent Gaussian scales, or
+means and scales for the mean-scale model), and the factorized bottleneck
+on z.  N = 128 internal and M = 192 latent channels at full width.
 
-Modules run NCHW; the public methods of ``ScaleHyperprior`` take and give
-NHWC as the JAX package does.  Parameter names follow flax's
-(``g_a.Conv_0``, ``g_s.ConvTranspose_3``, ``h_s.Conv_0``, ``bottleneck.H0``)
-so ``utils/weights_io.hyper_params_from_jax`` maps a checkpoint one to one.
+Modules run NCHW; the public methods of the two models take and give NHWC
+as the JAX package does.  Parameter names follow flax's (``g_a.Conv_0``,
+``g_s.ConvTranspose_3``, ``h_s.Conv_0``, ``bottleneck.H0``) so
+``utils/weights_io.hyper_params_from_jax`` maps a checkpoint one to one.
 
 These float convolutions ran outside Pallas in the JAX package, so here they
-are PyTorch's.  On the card they run in full float32 (no TF32) with
-deterministic cuDNN algorithms: the encoder and the decoder must derive
-bitwise-equal scales from the same z_hat.
+are PyTorch's.  On the card they run with deterministic cuDNN algorithms and,
+in float32, without TF32: the encoder and the decoder must derive
+bitwise-equal scales (and means) from the same z_hat.
 
-``MeanScaleHyperprior`` is not ported yet.
+``dtype=torch.bfloat16`` is the serving fast path, as the JAX package's
+``dtype=jnp.bfloat16``: parameters stay float32 (one checkpoint drives both
+dtypes); each conv takes its input and weight in bf16 and returns bf16
+(cuDNN and XLA accumulate in float32 and round the output), and its bias is
+added after, in bf16, as flax adds it; GDN's channel mix stays float32
+(``ops/gdn.py``); g_a, g_s and h_a return float32, and h_s's clip and exp
+run in float32.
 """
 
 from __future__ import annotations
@@ -33,87 +40,143 @@ from ..utils import weights_io
 from ..utils.device import resolve_device
 
 
-def _conv(cin: int, cout: int, k: int = 5, s: int = 2) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=s, padding=k // 2)
+def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax's ``y += bias`` after a conv in bf16: a second rounding."""
+    return y + bias.to(y.dtype)[:, None, None]
+
+
+class _Conv(nn.Conv2d):
+    """A conv in its input's dtype.  In bf16, as flax: the conv of the
+    bf16 input and weight rounded to bf16, then the bias added in bf16."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return self._conv_forward(x, self.weight, self.bias)
+        return _add_bias(self._conv_forward(x, self.weight.to(x.dtype), None),
+                         self.bias)
+
+
+def _conv(cin: int, cout: int, k: int = 5, s: int = 2) -> _Conv:
+    return _Conv(cin, cout, k, stride=s, padding=k // 2)
 
 
 class _Deconv(nn.ConvTranspose2d):
     """flax ``ConvTranspose(k=5, s=2, padding="SAME")``: the 2x-dilated
     input padded by (3, 2), output exactly 2x.  PyTorch's padding is
-    symmetric, so pad by 3 (padding=1) and drop the last row and column."""
+    symmetric, so pad by 3 (padding=1) and drop the last row and column.
+    Runs in its input's dtype, as ``_Conv``."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 5, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x)[..., :-1, :-1]
+        if x.dtype == torch.float32:
+            return super().forward(x)[..., :-1, :-1]
+        return _add_bias(F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride,
+            self.padding)[..., :-1, :-1], self.bias)
 
 
 class AnalysisTransform(nn.Module):
-    """g_a: image (B, 3, X, Y) -> latent y (B, M, X/16, Y/16)."""
+    """g_a: image (B, 3, X, Y) -> latent y (B, M, X/16, Y/16), float32."""
 
-    def __init__(self, n: int = 128, m: int = 192):
+    def __init__(self, n: int = 128, m: int = 192,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for i, (cin, cout) in enumerate(((3, n), (n, n), (n, n), (n, m))):
             setattr(self, f"Conv_{i}", _conv(cin, cout))
             if i < 3:
                 setattr(self, f"GDN_{i}", GDN(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         for i in range(3):
             x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv_{i}")(x))
-        return self.Conv_3(x)
+        return self.Conv_3(x).float()
 
 
 class SynthesisTransform(nn.Module):
-    """g_s: latent (B, M, zx, zy) -> image (B, 3, 16 zx, 16 zy)."""
+    """g_s: latent (B, M, zx, zy) -> image (B, 3, 16 zx, 16 zy), float32."""
 
-    def __init__(self, n: int = 128, m: int = 192):
+    def __init__(self, n: int = 128, m: int = 192,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for i, (cin, cout) in enumerate(((m, n), (n, n), (n, n), (n, 3))):
             setattr(self, f"ConvTranspose_{i}", _Deconv(cin, cout))
             if i < 3:
                 setattr(self, f"GDN_{i}", GDN(cout, inverse=True))
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
+        y = y.to(self.dtype)
         for i in range(3):
             y = getattr(self, f"GDN_{i}")(
                 getattr(self, f"ConvTranspose_{i}")(y))
-        return self.ConvTranspose_3(y)
+        return self.ConvTranspose_3(y).float()
 
 
 class HyperAnalysis(nn.Module):
-    """h_a: |y| -> hyper-latent z (a 3x3/s1 conv, then 2x 5x5/s2)."""
+    """h_a: |y| -> hyper-latent z (a 3x3/s1 conv, then 2x 5x5/s2),
+    float32."""
 
-    def __init__(self, n: int = 128, m: int = 192):
+    def __init__(self, n: int = 128, m: int = 192,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Conv_0 = _conv(m, n, k=3, s=1)
         self.Conv_1 = _conv(n, n)
         self.Conv_2 = _conv(n, n)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.Conv_0(torch.abs(y)))
+        h = F.relu(self.Conv_0(torch.abs(y).to(self.dtype)))
         h = F.relu(self.Conv_1(h))
-        return self.Conv_2(h)
+        return self.Conv_2(h).float()
 
 
 class HyperSynthesis(nn.Module):
-    """h_s: z_hat -> per-latent Gaussian scales sigma (positive)."""
+    """h_s: z_hat -> per-latent Gaussian scales sigma (positive, float32).
+    Its last conv has ``outputs`` = M channels."""
 
-    def __init__(self, n: int = 128, m: int = 192):
+    outputs = 1
+
+    def __init__(self, n: int = 128, m: int = 192,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.ConvTranspose_0 = _Deconv(n, n)
         self.ConvTranspose_1 = _Deconv(n, n)
-        self.Conv_0 = _conv(n, m, k=3, s=1)
+        self.Conv_0 = _conv(n, self.outputs * m, k=3, s=1)
+
+    def _last(self, z: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.ConvTranspose_0(z.to(self.dtype)))
+        h = F.relu(self.ConvTranspose_1(h))
+        return self.Conv_0(h).float()
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.ConvTranspose_0(z))
-        h = F.relu(self.ConvTranspose_1(h))
-        return torch.exp(torch.clamp(self.Conv_0(h), -10.0, 10.0))
+        return torch.exp(torch.clamp(self._last(z), -10.0, 10.0))
+
+
+class HyperSynthesisMeanScale(HyperSynthesis):
+    """h_s of the mean-scale model: its last conv has 2M channels, the
+    first M the means mu (``jnp.split`` on the channel axis), the other M
+    log-scales."""
+
+    outputs = 2
+
+    def forward(self, z: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu, log_sigma = torch.chunk(self._last(z), 2, dim=1)
+        return mu, torch.exp(torch.clamp(log_sigma, -10.0, 10.0))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
+    """NHWC -> NCHW with the row-major strides of its shape.  ``contiguous``
+    keeps the strides of size-1 dims, so a 1x1 z_hat decoded from a stream
+    and the encoder's would reach the convs in two layouts, which oneDNN
+    (and cuDNN) may sum in two orders: mu and sigma would differ by ulps
+    between the two ends."""
+    return x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -126,30 +189,48 @@ def _exact_float():
                                       deterministic=True, allow_tf32=False)
 
 
-class ScaleHyperprior(nn.Module):
-    """g_a/g_s + hyperprior entropy stage; inference methods only.
+class _Hyperprior(nn.Module):
+    """What both models share: g_a, g_s, h_a, the bottleneck, and an h_s
+    of the subclass's ``hyper_synthesis``; inference methods only.
 
     Built on ``device`` (default: the card; ``device="cpu"`` to run on the
-    host).  Inputs are moved to the module's device."""
+    host), in ``dtype`` (float32, or bfloat16 for the serving fast path).
+    Inputs are moved to the module's device."""
 
-    def __init__(self, n: int = 128, m: int = 192, device=None):
+    hyper_synthesis = HyperSynthesis
+
+    def __init__(self, n: int = 128, m: int = 192, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n, self.m = n, m
-        self.g_a = AnalysisTransform(n, m)
-        self.g_s = SynthesisTransform(n, m)
-        self.h_a = HyperAnalysis(n, m)
-        self.h_s = HyperSynthesis(n, m)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: float32 or bfloat16")
+        self.n, self.m, self.dtype = n, m, dtype
+        self.g_a = AnalysisTransform(n, m, dtype)
+        self.g_s = SynthesisTransform(n, m, dtype)
+        self.h_a = HyperAnalysis(n, m, dtype)
+        self.h_s = self.hyper_synthesis(n, m, dtype)
         self.bottleneck = FactorizedEntropy(n)
         self.requires_grad_(False)
         self.to(resolve_device(device))
 
     @classmethod
-    def from_checkpoint(cls, path: str, device=None) -> "ScaleHyperprior":
-        """Load the JAX package's ``hp_scale_*.params.msgpack``."""
+    def from_checkpoint(cls, path: str, device=None,
+                        dtype: torch.dtype = torch.float32):
+        """Load the JAX package's ``hp_scale_*.params.msgpack`` (or, for
+        ``MeanScaleHyperprior``, ``hp_meanscale_*``).  The format carries
+        no model name: a checkpoint of the other family, told apart by its
+        h_s's last conv (M outputs or 2M), raises ValueError."""
         state = weights_io.hyper_params_from_jax(
             weights_io.load_hyper_checkpoint(path))
-        model = cls(n=state["h_a.Conv_2.weight"].shape[0],
-                    m=state["g_a.Conv_3.weight"].shape[0], device=device)
+        m = state["g_a.Conv_3.weight"].shape[0]
+        got = state["h_s.Conv_0.weight"].shape[0]
+        if got != cls.hyper_synthesis.outputs * m:
+            raise ValueError(
+                f"{path}: h_s ends in {got} channels for M = {m}, not "
+                f"{cls.hyper_synthesis.outputs * m}: not a {cls.__name__} "
+                f"checkpoint")
+        model = cls(n=state["h_a.Conv_2.weight"].shape[0], m=m,
+                    device=device, dtype=dtype)
         model.load_state_dict(state)
         return model
 
@@ -171,13 +252,34 @@ class ScaleHyperprior(nn.Module):
         return _nhwc(y), _nhwc(z_hat)
 
     @torch.no_grad()
+    def decode_arrays(self, y_hat: torch.Tensor) -> torch.Tensor:
+        """y_hat (B, yx, yy, M) -> x_hat (B, 16 yx, 16 yy, 3), NHWC
+        float32."""
+        with _exact_float():
+            return _nhwc(self.g_s(self._in(y_hat)))
+
+
+class ScaleHyperprior(_Hyperprior):
+    """g_a/g_s + hyperprior entropy stage: h_s predicts the scales sigma."""
+
+    @torch.no_grad()
     def scales_from_z(self, z_hat: torch.Tensor) -> torch.Tensor:
         """z_hat (B, zx, zy, N) -> sigma (B, 4 zx, 4 zy, M), NHWC."""
         with _exact_float():
             return _nhwc(self.h_s(self._in(z_hat)))
 
+
+class MeanScaleHyperprior(_Hyperprior):
+    """The mean-scale hyperprior: h_s predicts (mu, sigma), and the codec
+    codes round(y - mu), zero-mean symbols, adding mu back before g_s."""
+
+    hyper_synthesis = HyperSynthesisMeanScale
+
     @torch.no_grad()
-    def decode_arrays(self, y_hat: torch.Tensor) -> torch.Tensor:
-        """y_hat (B, yx, yy, M) -> x_hat (B, 16 yx, 16 yy, 3), NHWC."""
+    def params_from_z(self, z_hat: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """z_hat (B, zx, zy, N) -> (mu, sigma), each (B, 4 zx, 4 zy, M)
+        NHWC float32."""
         with _exact_float():
-            return _nhwc(self.g_s(self._in(y_hat)))
+            mu, sigma = self.h_s(self._in(z_hat))
+        return _nhwc(mu), _nhwc(sigma)

@@ -8,6 +8,13 @@ The port of the JAX package's ``ops/gdn.py``, on NCHW tensors:
 beta and gamma are stored raw and reparameterized as the JAX package does,
 ``max(v, sqrt(min + 2^-18))^2 - 2^-18``.  The channel mix is a 1x1
 convolution whose weight is gamma transposed.
+
+GDN runs in its input's dtype.  On a bf16 input (the serving fast path)
+it follows the JAX package's ``dtype`` branch: x^2 and gamma rounded to
+bf16, the mix summed in float32 and never rounded (a bf16 conv would round
+it; each product of two bf16 values is exact in float32, so the mix is a
+float32 conv of the bf16-rounded operands), the sqrt and the divide in
+float32, and only the result cast to bf16.
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ class GDN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = reparam(self.beta, self.beta_min)
-        gamma = reparam(self.gamma)
+        gamma = reparam(self.gamma).to(x.dtype).float()
         c = gamma.shape[0]
-        mix = F.conv2d(torch.square(x), gamma.t().reshape(c, c, 1, 1), beta)
+        mix = F.conv2d(torch.square(x).float(),
+                       gamma.t().reshape(c, c, 1, 1), beta)
         norm = torch.sqrt(mix)
-        return x * norm if self.inverse else x / norm
+        y = x.float()
+        return (y * norm if self.inverse else y / norm).to(x.dtype)

@@ -433,10 +433,11 @@ def test_corrupt_and_foreign_containers_raise(codecs):
         t_codec.compress_batch(x[:, :32])
 
 
-def test_unported_paths_raise(codecs, trained):
-    """``MeanScaleCodec`` is still to port; the serial format round-trips:
-    y_hat equals the encoder's rounded y, and a container of the other
-    format is refused."""
+def test_serial_format_and_meanscale_codec_build(codecs, trained):
+    """The serial format round-trips: y_hat equals the encoder's rounded y,
+    and a container of the other format is refused.  ``MeanScaleCodec``
+    builds on the trained mean-scale model, and its ``from_checkpoint``
+    refuses this scale checkpoint."""
     _, t_codec = codecs
     x = torch.from_numpy(np.random.default_rng(10).random(
         (1, 64, 64, 3), np.float32))
@@ -449,8 +450,13 @@ def test_unported_paths_raise(codecs, trained):
         t_codec.decompress(t_codec.compress_batch(x)[0])
     with pytest.raises(ValueError):
         t_codec.compress(torch.cat([x, x]))
-    with pytest.raises(NotImplementedError):
-        hyper_codec.MeanScaleCodec(trained[2])
+    ms_ckpt = CKPT.replace("hp_scale_", "hp_meanscale_")
+    ms_codec = hyper_codec.MeanScaleCodec(
+        hyperprior.MeanScaleHyperprior.from_checkpoint(ms_ckpt, device="cpu"))
+    assert ms_codec.z_cdfs.shape == t_codec.z_cdfs.shape
+    assert ms_codec.model.h_s.Conv_0.weight.shape[0] == 2 * trained[2].m
+    with pytest.raises(ValueError, match="checkpoint"):
+        hyper_codec.MeanScaleCodec.from_checkpoint(CKPT, device="cpu")
 
 
 @pytest.mark.parametrize("n_pix,channels", [(1, 128), (4, 128), (64, 192),

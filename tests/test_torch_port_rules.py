@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 
-from simple_image_compression_network_tpu_torch import _build
+from simple_image_compression_network_tpu_torch import _build, eval_codec
 from simple_image_compression_network_tpu_torch.codec import hyper_codec, rans
 from simple_image_compression_network_tpu_torch.models import (
     codec_int, hyperprior)
@@ -73,6 +73,26 @@ def test_hyper_entry_points_raise_without_a_card(monkeypatch):
     assert hyper_codec.HyperCodec(model).device == torch.device("cpu")
 
 
+def test_meanscale_and_eval_entry_points_raise_without_a_card(monkeypatch):
+    """The mean-scale model and codec (either dtype) and ``eval_codec.main``
+    run on the card unless asked for the CPU, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(RuntimeError):
+            hyperprior.MeanScaleHyperprior(n=4, m=6, dtype=dtype)
+    ckpt = os.path.join(ROOT, "checkpoints",
+                        "hp_meanscale_l0.01.params.msgpack")
+    with pytest.raises(RuntimeError):
+        hyper_codec.MeanScaleCodec.from_checkpoint(ckpt)
+    for argv in (["--codec", "int8"], ["--codec", "meanscale", "--ckpt",
+                                       ckpt]):
+        with pytest.raises(RuntimeError):
+            eval_codec.main(argv)
+    model = hyperprior.MeanScaleHyperprior(n=4, m=6, device="cpu",
+                                           dtype=torch.bfloat16)
+    assert hyper_codec.MeanScaleCodec(model).device == torch.device("cpu")
+
+
 def test_new_modules_fall_under_the_import_probe():
     """The probe walks every module of the package; the hyper slice's
     modules must be among them."""
@@ -83,7 +103,7 @@ def test_new_modules_fall_under_the_import_probe():
     for mod in ("codec.hyper_codec", "codec.entropy", "codec.escape",
                 "models.hyperprior", "ops.gdn", "utils.msgpack_io",
                 "models.tiled", "codec.rans", "codec.wavelet_codec",
-                "intnet_haar"):
+                "intnet_haar", "eval_codec", "utils.data"):
         assert f"{port.__name__}.{mod}" in names
 
 
