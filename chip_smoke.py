@@ -17,8 +17,17 @@ paths at full width on B random-seeded 768x512 images:
   reference weights and the static latent CDFs, checked against the direct
   golden transform (plain float64 convolutions, independent of kernel A);
 * the int8 transform ``eight_layers_net`` under the JAX package's Pallas
-  plans (``pallas3`` on kernel F, ``pallas`` and ``pallas2`` on kernel A)
-  and tiled under ``pallas3``, each equal to the golden;
+  plans (``pallas3`` on kernel F, ``pallas`` and ``pallas2`` on kernel A),
+  its other mappings (``s4d_phased``: s4d on A, a launch of F a phase;
+  ``gemm_tapn``: one-tap products on F; ``laxf32``: one float32 cuDNN conv
+  at L0, the goldens after it), with ``phased=False``, and tiled under
+  ``pallas3``, each equal to the golden;
+* the native C++ golden (g++) at the L0 and L7 shapes, equal to the
+  float64 golden and to the layers on kernels A and F; the TMR conv at the
+  L1 shape (no fault, one replica flipped, three replicas distinct: flags
+  0, 1, 2, the vote equal to the plain layer); every ``ops/nn`` function on
+  CUDA tensors equal to the CPU's; ``utils/dump`` raising inside a CUDA
+  graph capture;
 * the dense-flag encoder ``encode_batch`` (kernel H) on the int8 latent,
   equal to the compact encoder's words;
 * the scale-hyperprior codec's ``compress_batch`` then ``decompress_batch``
@@ -58,7 +67,9 @@ paths at full width on B random-seeded 768x512 images:
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
 paths' shapes beside its plain version and its bound (the conv kernels with
-their weights packed ahead, the rANS kernels with their table layout and
+their weights packed ahead, also F and A at the new plans' shapes: one
+output block of 3 columns, the one-tap products at K = 108 and N = 4,608,
+A at C = 2,048; the rANS kernels with their table layout and
 outputs made ahead, so that a call launches the kernel alone, by CUDA events
 around calls queued behind a spin kernel, since their wrappers' host time
 can exceed the kernel's; each wrapper's time a call beside it) and, for the
@@ -175,13 +186,23 @@ LAYERS = [("L0", "conv", (768, 512), 3, 128),
           ("L5", "deconv", (96, 64), 128, 128),
           ("L6", "deconv", (192, 128), 128, 128),
           ("L7", "deconv", (384, 256), 128, 3)]
-# The JAX package's Pallas plans and the launches each makes per pass.
+# The JAX package's Pallas plans and its other mappings, and the launches
+# each makes per pass: s4d on kernel A, phased on F (a launch a phase),
+# gemm and tapn on F (one-tap products), laxf32 (one float32 cuDNN conv at
+# L0, the golden forms after it) on neither.
 PLANS = {"pallas3": (("pallas3",) * 4 + ("pd2s3",) * 4,
                      {"conv_sparse_int8": 8, "conv3x3_s1_int8": 0}),
          "pallas": (("pallas",) * 4 + ("pd2s",) * 4,
                     {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0}),
          "pallas2": (("pallas2",) * 4 + ("pd2s2",) * 4,
-                     {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0})}
+                     {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0}),
+         "s4d_phased": (("s4d",) * 4 + ("phased",) * 4,
+                        {"conv3x3_s1_int8": 4, "conv_sparse_int8": 16}),
+         "gemm_tapn": (("gemm",) * 4 + ("tapn",) * 4,
+                       {"conv_sparse_int8": 8, "conv3x3_s1_int8": 0}),
+         "laxf32": (("laxf32", "lax", "lax", "lax") + ("dilated",) * 4,
+                    {"conv3x3_s1_int8": 0, "conv_sparse_int8": 0})}
+NO_CONV = {"conv3x3_s1_int8": 0, "conv_sparse_int8": 0}
 TILE_X = 256
 
 
@@ -1190,7 +1211,8 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                    f"each, B={batch} 768x512; ms on the card "
                    f"(CUDA events behind a spin kernel)", by="operations",
                    wrapper_ms=wrap_ms,
-                   prepacked_wrapper_ms=packed_ms, int_mm_ms=mm_ms, **lib),
+                   prepacked_wrapper_ms=packed_ms, int_mm_ms=mm_ms,
+                   new_shapes=layers["new_shapes"]["a"], **lib),
              launches=sum(a_path.values()), launches_by_path=a_path),
         entry("conv_sparse_int8", "conv_sparse_int8.cu",
               "ops/pallas_conv.py:290", errs["conv_sparse_int8"],
@@ -1198,7 +1220,8 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
               f"sum of the 8 layers of the pallas3 plan, one launch each, "
               f"B={batch} 768x512; ms on the card (CUDA events behind "
               f"a spin kernel)",
-              by="operations", wrapper_ms=layers["f_wrapper"], **lib),
+              by="operations", wrapper_ms=layers["f_wrapper"],
+              new_shapes=layers["new_shapes"]["f"], **lib),
         entry("rans_encode_dense", "rans_encode.cu",
               "codec/pallas_rans.py:413", errs["rans_encode_dense"],
               h["ms"], h["plain"], h["bound"],
@@ -1437,10 +1460,11 @@ def main_path(seed: int, batch: int, dev, card: str) -> tuple:
 
 
 def plans_path(batch: int, golden: dict, card: str) -> dict:
-    """``eight_layers_net`` under each Pallas plan and tiled under
-    ``pallas3`` at 768x512: each equal to the golden, with its launch
-    counts read right after; then each plan's transform timed beside the
-    default plan's ``IntCodecNet`` forward.  Returns the counts by path."""
+    """``eight_layers_net`` under each plan of ``PLANS``, with
+    ``phased=False`` (the golden plan) and tiled under ``pallas3`` at
+    768x512: each equal to the golden, with its launch counts read right
+    after; then each plan's transform timed beside the default plan's
+    ``IntCodecNet`` forward.  Returns the counts by path."""
     from simple_image_compression_network_tpu_torch.models import (
         codec_int, tiled)
     params, x, x_ref = golden["params"], golden["x"], golden["x_ref"]
@@ -1452,6 +1476,11 @@ def plans_path(batch: int, golden: dict, card: str) -> dict:
         counts[name] = read_exact(name, expected)
         require_equal(f"plan {name}: eight_layers_net == golden", y, x_ref)
     reset_counts()
+    y = codec_int.eight_layers_net(params, x, phased=False)
+    torch.cuda.synchronize()
+    read_exact("phased=False", NO_CONV)
+    require_equal("eight_layers_net(phased=False) == golden", y, x_ref)
+    reset_counts()
     y = tiled.eight_layers_net_tiled(params, x, TILE_X,
                                      impl=PLANS["pallas3"][0])
     torch.cuda.synchronize()
@@ -1460,8 +1489,8 @@ def plans_path(batch: int, golden: dict, card: str) -> dict:
         "tiled pallas3", {"conv_sparse_int8": 8 * n_tiles,
                           "conv3x3_s1_int8": 0})
     require_equal(f"tiled (tile_x={TILE_X}) == untiled", y, x_ref)
-    log(f"plans pallas3, pallas, pallas2 and tiled pallas3 == golden at "
-        f"B={batch} 768x512")
+    log(f"plans {', '.join(PLANS)}, phased=False and tiled pallas3 == "
+        f"golden at B={batch} 768x512")
     mp = batch * H * W / 1e3        # megapixels per ms -> MP/s
     net = golden["net"]
     for name, (impl, _) in PLANS.items():
@@ -1503,6 +1532,264 @@ def dense_encode_path(batch: int, golden: dict) -> dict:
     log(f"dense-flag encode of the int8 latent: {b * s_img} streams, "
         f"{int(counts.sum())} words == kernel B's")
     return launched
+
+
+def native_golden_path(golden: dict, dev) -> None:
+    """The port's native C++ golden (g++ build) at B = 1: the L0 conv
+    (768x512x3 -> 128) on the first image and the L7 deconv (384x256x128
+    -> 3) on its golden L6 activations, each equal to the float64 golden
+    and to the layer on kernels A (s2d / d2s) and F (pallas3 / phased)."""
+    from simple_image_compression_network_tpu_torch.ops import (
+        conv_fast, conv_int, cuda_conv)
+    from simple_image_compression_network_tpu_torch.utils import (
+        native_golden)
+    params = golden["params"]
+    t0 = time.perf_counter()
+    native_golden.load()
+    log(f"native golden g++ build and load: {time.perf_counter() - t0:.1f} s")
+    h = golden["z_ref"][:1]
+    for i in (4, 5, 6):
+        h = conv_int.deconv2d_int8(h, params[f"w{i}"], params[f"b{i}"])
+    x0 = conv_int.to_wire_int8(golden["x"][:1])
+    for name, layer, x, i, forms in (
+            ("L0 conv2d", "conv2d", x0, 0,
+             (("float64 golden", conv_int.conv2d_int8),
+              ("kernel A s2d", conv_fast.conv2d_int8_s2d),
+              ("kernel F pallas3", cuda_conv.conv2d_int8_pallas3))),
+            ("L7 deconv2d", "deconv2d", h, 7,
+             (("float64 golden", conv_int.deconv2d_int8),
+              ("kernel A d2s", conv_fast.deconv2d_int8_d2s),
+              ("kernel F phased", conv_int.deconv2d_int8_phased)))):
+        w, b = params[f"w{i}"], params[f"b{i}"]
+        t0 = time.perf_counter()
+        nat = torch.from_numpy(getattr(native_golden, layer)(
+            x.cpu().numpy(), w.cpu().numpy(), b.cpu().numpy())).to(dev)
+        secs = time.perf_counter() - t0
+        for what, fn in forms:
+            require_equal(f"native golden {name} == {what}", nat,
+                          fn(x, w, b))
+        if i == 7:
+            require_equal("native golden L7 == x_ref[0]", nat,
+                          golden["x_ref"][:1])
+        log(f"native golden {name} {tuple(x.shape)} -> {tuple(nat.shape)} "
+            f"in {secs:.2f} s on the host == "
+            f"{', '.join(f for f, _ in forms)}")
+
+
+def tmr_path(golden: dict, dev) -> None:
+    """``conv2d_int8_tmr`` at the L1 shape (B = 2, 384x256x128 on the L0
+    output of the golden, triplicated to 384 outputs) on the card: flag 0
+    with no fault; 1 with one replica flipped at one element; 2 with the
+    other two replicas made distinct at one element (the vote then takes
+    replica a); each vote equal to ``conv2d_int8``.  No kernel runs."""
+    from simple_image_compression_network_tpu_torch.ops import conv_int, tmr
+    params = golden["params"]
+    h = conv_int.conv2d_int8(conv_int.to_wire_int8(golden["x"]),
+                             params["w0"], params["b0"])
+    w1, b1 = params["w1"], params["b1"]
+    clean = conv_int.conv2d_int8(h, w1, b1)
+    b, xo, yo, o = clean.shape
+    one = torch.zeros((b, xo, yo, 3 * o), dtype=torch.int32, device=dev)
+    one[0, xo // 3, yo // 5, 3 * 9 + 1] = 0x40      # replica b, channel 9
+    distinct = torch.zeros_like(one)
+    distinct[1, xo // 2, yo // 2, 3 * 17 + 1] = 0x11    # replicas b and c,
+    distinct[1, xo // 2, yo // 2, 3 * 17 + 2] = 0x22    # channel 17
+    reset_counts()
+    for what, mask, flag in (("no fault", None, 0), ("one replica", one, 1),
+                             ("three distinct", distinct, 2)):
+        voted, err = tmr.conv2d_int8_tmr(w1, b1, h, fault_mask=mask)
+        if err.device != clean.device or err.dtype != torch.int32 or \
+                err.dim() != 0 or int(err) != flag:
+            raise AssertionError(f"TMR {what}: flag {err} on {err.device}, "
+                                 f"expected {flag}")
+        require_equal(f"TMR {what}: vote == conv2d_int8", voted, clean)
+        log(f"TMR {what}: flag {int(err)}, vote == conv2d_int8 "
+            f"{tuple(voted.shape)}")
+    read_exact("TMR", NO_CONV)
+
+
+def nn_path(rng, dev) -> None:
+    """Every function of ``ops/nn.py`` on CUDA tensors of a few hundred kB
+    equal, dtype and all, to the same function on the CPU: the integer
+    products without CUDA's integer matmul, the pools on int8, the stable
+    top-K among ties."""
+    from simple_image_compression_network_tpu_torch.ops import nn
+
+    def ints(lo, hi, shape, dtype=np.int8):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape)
+                                .astype(dtype))
+    x8 = ints(-128, 128, (4, 63, 64, 16))
+    bits = ints(0, 2, (256, 1024))
+    wbits = ints(0, 2, (128, 1024))
+    scores = ints(-4, 4, (256, 1000), np.int32)
+    cases = [
+        ("maxpool2d k3 s2", lambda x: nn.maxpool2d(x, 3, 2), (x8,)),
+        ("maxpool2d k2", lambda x: nn.maxpool2d(x, 2), (x8,)),
+        ("maxpool1d", lambda x: nn.maxpool1d(x, 4), (x8[:, 0],)),
+        ("binary_maxpool2d", lambda x: nn.binary_maxpool2d(x, 2),
+         (ints(0, 2, (4, 64, 64, 16), np.uint8),)),
+        ("avgpool2d_quant", lambda x: nn.avgpool2d_quant(x, 3, shift=2),
+         (x8,)),
+        ("accpool", nn.accpool, (x8,)),
+        ("relu_batch", nn.relu_batch, (x8,)),
+        ("label_select (ties)", lambda x: nn.label_select(x, 37), (scores,)),
+        ("depthwise_conv2d_int8", lambda x, w, b: nn.depthwise_conv2d_int8(
+            x, w, b, stride=1, padding=1),
+         (x8, ints(-8, 8, (16, 3, 3)), ints(-128, 128, (16,)))),
+        ("fc_int8", nn.fc_int8, (ints(-128, 128, (256, 1024)),
+                                 ints(-8, 8, (128, 1024)),
+                                 ints(-128, 128, (128,)))),
+        ("fc_int8 no bias", nn.fc_int8, (ints(-128, 128, (256, 1024)),
+                                         ints(-8, 8, (128, 1024)))),
+        ("threshold_activation", nn.threshold_activation,
+         (ints(-300, 300, (4, 64, 64, 16), np.int32),
+          torch.sort(ints(-300, 300, (16, 7), np.int32), -1).values)),
+        ("channelwise_op add", lambda x, p: nn.channelwise_op(x, p, "add"),
+         (x8, ints(-128, 128, (16,)))),
+        ("channelwise_op mul", lambda x, p: nn.channelwise_op(x, p, "mul"),
+         (x8, ints(-128, 128, (16,)))),
+        ("xnor_popcount_fc", nn.xnor_popcount_fc, (bits, wbits)),
+        ("binary_fc", nn.binary_fc, (bits, wbits)),
+        ("add_streams", nn.add_streams, (x8, ints(-128, 128, x8.shape))),
+        ("duplicate_streams", lambda x: nn.duplicate_streams(x)[1], (x8,)),
+        ("streaming_cast", lambda x: nn.streaming_cast(x, torch.int16),
+         (x8,)),
+    ]
+    reset_counts()
+    for name, fn, args in cases:
+        cpu = fn(*args)
+        gpu = fn(*(a.to(dev) for a in args))
+        if gpu.device.type != dev.type or gpu.dtype != cpu.dtype or \
+                not torch.equal(gpu.cpu(), cpu):
+            raise AssertionError(f"ops/nn {name}: the card's result differs "
+                                 f"from the CPU's")
+    read_exact("ops/nn", NO_CONV)
+    log(f"ops/nn: {len(cases)} calls on CUDA tensors == the CPU's, "
+        f"dtype and all ({x8.numel()} bytes of int8 activations a call)")
+
+
+def dump_path(dev) -> None:
+    """``utils/dump`` on the card: a dump outside a CUDA graph capture
+    writes the tensor (under ``build/``, which .gitignore lists); inside a
+    capture it raises before any copy to the host."""
+    from simple_image_compression_network_tpu_torch.utils import dump
+    x = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    out = os.path.join(ROOT, "build", "chip_smoke_dump")
+    dump.enable(out)
+    try:
+        dump.dump("x", x)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                dump.dump("x", x * 2)
+        except RuntimeError as e:
+            if "capture" not in str(e):
+                raise
+        else:
+            raise AssertionError("dump inside a CUDA graph capture did not "
+                                 "raise")
+    finally:
+        dump.disable()
+    require_equal("dump.load == the dumped tensor",
+                  torch.from_numpy(dump.load(out, "x")), x.cpu())
+    log(f"dump: {x.numel()} int32 from the card == dump.load; inside a CUDA "
+        f"graph capture it raises")
+
+
+# Kernels F and A alone at the shapes the new plans give them at 768x512
+# (per image; the 8 layers' shapes are time_layers'): (name, kernel, input
+# grid, input channels, output columns).
+NEW_SHAPES = [("F L7 phased, phase (0, 0)", "f", (384, 256), 128, 3),
+              ("F L0 gemm, one tap", "f", (384, 256), 108, 128),
+              ("F L6 tapn, one tap", "f", (192, 128), 128, 4608),
+              ("A L1 s4d", "a", (96, 64), 2048, 512)]
+
+
+def new_shape_case(rng, batch: int, spec, dev) -> dict:
+    """Operands of one ``NEW_SHAPES`` entry, made by the plans' own code:
+    the kernel's call with its weights packed ahead (it launches the kernel
+    alone), its wrapper's call, its plain version, the operations and bytes
+    of the call, and its GEMM shape (M, K, N) for ``torch._int_mm``."""
+    from simple_image_compression_network_tpu_torch.ops import (
+        conv_fast, cuda_conv)
+    name, kernel, (gx, gy), c, n = spec
+
+    def rand(shape, lo=-128, hi=128):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape,
+                                             dtype=np.int8)).to(dev)
+    m, relu = batch * gx * gy, True
+    if "phased" in name:        # phase (0, 0) of L7: 9 taps, 3 columns
+        x = rand((batch, gx, gy, c), 0)
+        taps, wt = cuda_conv.deconv_taps_phases(rand((n, 5, 5, c), -8, 8))[0]
+        mm = (m, len(taps) * c, n)
+    elif "gemm" in name:        # the s2d patches, K = 108 padded to 112
+        x, wt = conv_fast.gemm_operands(rand((batch, 2 * gx, 2 * gy, 3)),
+                                        rand((n, 5, 5, 3), -8, 8))
+        taps, mm = conv_fast.ONE_TAP, (m, c, n)
+    elif "tapn" in name:        # N = 9 taps x 4 phases x 128
+        x = rand((batch, gx, gy, c), 0)
+        wt = conv_fast.deconv_weights_tapn(rand((n // 36, 5, 5, c), -8,
+                                                8))[None]
+        taps, mm, relu = conv_fast.ONE_TAP, (m, c, n), False
+    else:                       # kernel A over the 4x4 s2d input
+        x = rand((batch, gx, gy, c))
+        wt = conv_fast.conv_weights_s4d(rand((n // 4, 5, 5, c // 16), -8,
+                                             8))
+        taps, mm = cuda_conv.DENSE_TAPS, (m, 9 * c, n)
+    bias = rand((n,)) if relu else torch.zeros(n, dtype=torch.int8,
+                                                device=dev)
+    wt = wt.to(dev).contiguous()
+    if kernel == "f":
+        pk = cuda_conv.pack_taps(wt, taps, 1, x.shape[3])
+        calls = (lambda: cuda_conv._conv_sparse(x, wt, bias, taps, 1, relu,
+                                                False, False, pk),
+                 lambda: cuda_conv.conv_sparse_int8(x, wt, bias, taps, 1,
+                                                    relu),
+                 lambda: cuda_conv.conv_sparse_int8_plain(x, wt, bias, taps,
+                                                          1, relu))
+    else:
+        wp = cuda_conv.pack_conv3x3(wt)
+        calls = (lambda: cuda_conv._conv3x3(x, wt, bias, True, False, False,
+                                            wp),
+                 lambda: cuda_conv.conv3x3_s1_int8(x, wt, bias),
+                 lambda: cuda_conv.conv3x3_s1_int8_plain(x, wt, bias))
+    return {"name": name, "kernel": kernel, "calls": calls,
+            "ops": 2 * mm[0] * mm[1] * mm[2],
+            "bytes": x.numel() + wt.numel() + n + m * n, "mm": mm,
+            "shape": f"{tuple(x.shape)} -> {n}, {len(taps)} taps"}
+
+
+def time_new_shapes(rng, batch: int, dev, errs: dict) -> dict:
+    """Each ``NEW_SHAPES`` entry: the kernel against its plain version,
+    then timed alone (CUDA events behind a spin kernel, weights packed
+    ahead) beside its wrapper, its plain version, its bound and
+    ``torch._int_mm`` at its GEMM shape.  Returns the entries by kernel."""
+    out = {"f": {}, "a": {}}
+    for spec in NEW_SHAPES:
+        c = new_shape_case(rng, batch, spec, dev)
+        alone, wrapper, plain = c["calls"]
+        counter = "conv_sparse_int8" if c["kernel"] == "f" else \
+            "conv3x3_s1_int8"
+        got = wrapper()
+        err = require_equal(f"kernel {c['name']}", got, plain())
+        errs[counter] = max(errs[counter], err)
+        require_equal(f"kernel {c['name']} prepacked", alone(), got)
+        del got
+        r = {"shape": c["shape"], "max_abs_err": err, "ms": kernel_ms(alone),
+             "wrapper_ms": cuda_ms(wrapper, 20),
+             "plain_ms": cuda_ms(plain, 3),
+             "int_mm_ms": int_mm_ms(*c["mm"], dev)}
+        op_b, byte_b = c["ops"] / PEAK_INT8_OPS, c["bytes"] / PEAK_BYTES
+        r["bound_ms"] = max(op_b, byte_b) * 1e3
+        r["bound_by"] = "operations" if op_b >= byte_b else "bytes"
+        out[c["kernel"]][c["name"]] = r
+        log(f"kernel {c['name']} B={batch} {c['shape']}: {r['ms']:.4f} ms "
+            f"on the card ({r['bound_ms'] / r['ms']:.1%} of its bound "
+            f"{r['bound_ms']:.4f}, by {r['bound_by']}; "
+            f"{c['ops'] / r['ms'] / 1e9:.1f} TOP/s); wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f}; "
+            f"torch._int_mm {c['mm']} {r['int_mm_ms']:.4f} ms")
+    return out
 
 
 def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
@@ -2494,6 +2781,14 @@ def main() -> int:
         int8, golden = main_path(args.seed, args.batch, dev, smi)
     with phase("int8 transform under the Pallas plans at 768x512"):
         plans = plans_path(args.batch, golden, smi)
+    with phase("native golden at the L0 and L7 shapes"):
+        native_golden_path(golden, dev)
+    with phase("TMR at the L1 shape"):
+        tmr_path(golden, dev)
+    with phase("ops/nn on the card"):
+        nn_path(rng, dev)
+    with phase("utils/dump on the card"):
+        dump_path(dev)
     with phase("dense-flag encode of the int8 latent"):
         dense = dense_encode_path(args.batch, golden)
     with phase("hyper path at 768x512"):
@@ -2527,6 +2822,7 @@ def main() -> int:
 
     with phase("kernel timing at the paths' shapes"):
         layers = time_layers(rng, args.batch, dev)
+        layers["new_shapes"] = time_new_shapes(rng, args.batch, dev, errs)
         kernels = time_kernels(rng, cdfs, codec, args.batch, dev, errs,
                                launches, layers)
 

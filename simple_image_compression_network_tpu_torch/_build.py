@@ -9,8 +9,9 @@ The library lands in ``build/torch_kernels/<sha256 of sources and
 flags>/libsicn_kernels.so`` under the repository root, at first use.  The
 compiler writes to a temporary name that is renamed into place, so a build
 that is cut off leaves nothing that a later build would trust or wait on.
-The host rANS coder (``codec/rans.py``) is built by the same
-``compile_library`` with g++.
+The host libraries, the rANS coder (``codec/rans.py``) and the native golden
+(``utils/native_golden.py``), are built by the same ``compile_library`` with
+g++.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ LIB_NAME = "libsicn_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")   # host libraries
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p).
@@ -61,6 +63,16 @@ def find_nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or in "
                        "/usr/local/cuda/bin: cannot build the CUDA kernels")
+
+
+def find_cxx() -> str:
+    """``g++`` on PATH, for the host libraries (the rANS coder, the native
+    golden)."""
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found on PATH: cannot build the host "
+                           "libraries")
+    return found
 
 
 def sources() -> list:

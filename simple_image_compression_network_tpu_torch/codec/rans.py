@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 from typing import Tuple
 
@@ -37,26 +36,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "native", "rans.cpp")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 LIB_NAME = "librans.so"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 120
 
 _lock = threading.Lock()
 _lib = None
 
 
-def find_cxx() -> str:
-    found = shutil.which("g++")
-    if not found:
-        raise RuntimeError("g++ not found on PATH: cannot build the host "
-                           "rANS coder")
-    return found
-
-
 def build() -> tuple:
     """Compile the host coder unless this exact build exists -> (library
     path, compiler log; '' when it was already built)."""
-    return _build.compile_library(find_cxx(), CXX_FLAGS, [SOURCE], [SOURCE],
-                                  _BUILD_ROOT, LIB_NAME, BUILD_TIMEOUT_S)
+    return _build.compile_library(_build.find_cxx(), _build.CXX_FLAGS,
+                                  [SOURCE], [SOURCE], _BUILD_ROOT, LIB_NAME,
+                                  BUILD_TIMEOUT_S)
 
 
 def load_native() -> ctypes.CDLL:

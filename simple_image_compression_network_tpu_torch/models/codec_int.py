@@ -10,14 +10,18 @@ per-layer plan; ``IntCodecNet`` is the serving module, holding the default
 plan's rewritten 3x3 weights as buffers.  On the card every layer of the
 default plan runs on kernel A (``ops/cuda_conv.py``); the JAX package's
 Pallas plans run on kernel A ("pallas"/"pd2s", "pallas2"/"pd2s2") or on the
-block-sparse kernel F ("pallas3"/"pd2s3").  Every plan's results are
-bit-identical to the direct forms ("lax", "dilated"), the goldens.
+block-sparse kernel F ("pallas3"/"pd2s3"), and its other mappings on A
+("s4d") or F ("gemm", "tapn" as one-tap products; "phased", one launch
+per output phase); "laxf32" is one float32 cuDNN conv (layer 0 only).  Every
+plan's results are bit-identical to the direct forms ("lax", "dilated"),
+the goldens.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,20 +32,23 @@ from ..utils.device import resolve_device
 
 _CONV_IMPL = {
     "lax": conv_int.conv2d_int8,          # direct 5x5/s2 golden
+    "laxf32": conv_int.conv2d_int8_f32,   # float32 cuDNN, no TF32 (L0 only)
     "s2d": conv_fast.conv2d_int8_s2d,     # space-to-depth + kernel A
+    "s4d": conv_fast.conv2d_int8_s4d,     # 4x4 space-to-depth + kernel A
+    "gemm": conv_fast.conv2d_int8_gemm,   # im2col GEMM, kernel F one tap
     "pallas": cuda_conv.conv2d_int8_pallas,     # kernel A (TPU lane layout)
     "pallas2": cuda_conv.conv2d_int8_pallas2,   # kernel A (TPU flat layout)
     "pallas3": cuda_conv.conv2d_int8_pallas3,   # kernel F, 25 real taps
 }
 _DECONV_IMPL = {
     "dilated": conv_int.deconv2d_int8,    # lhs-dilated golden
+    "phased": conv_int.deconv2d_int8_phased,    # kernel F, a launch a phase
     "d2s": conv_fast.deconv2d_int8_d2s,   # kernel A (4 phases) + d2s
+    "tapn": conv_fast.deconv2d_int8_tapn,       # kernel F one tap, N = 36O
     "pd2s": cuda_conv.deconv2d_int8_pallas,
     "pd2s2": cuda_conv.deconv2d_int8_pallas2,
     "pd2s3": cuda_conv.deconv2d_int8_pallas3,   # kernel F, 9/6/6/4 taps
 }
-# Plan names of the JAX package that the port does not have yet.
-_UNPORTED = ("laxf32", "s4d", "gemm", "phased", "tapn")
 
 # The port's schedule: every layer through kernel A.  "tailfused" marks
 # the last two deconvs, fused in the phase domain.
@@ -58,13 +65,8 @@ def _plan(impl, cfg: ModelConfig):
     for i, name in enumerate(plan):
         known = (_CONV_IMPL if i < n_analysis
                  else {**_DECONV_IMPL, "tailfused": None})
-        if name in known:
-            continue
-        if name in _UNPORTED:
-            raise NotImplementedError(
-                f"plan entry {name!r} is not ported yet (ROADMAP.md, queue "
-                f"1: the remaining int8 op forms)")
-        raise ValueError(f"unknown plan entry {name!r} for layer {i}")
+        if name not in known:
+            raise ValueError(f"unknown plan entry {name!r} for layer {i}")
     return plan
 
 
@@ -105,10 +107,29 @@ def synthesis_int8(params: Dict[str, torch.Tensor], z: torch.Tensor,
 
 def eight_layers_net(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      cfg: ModelConfig = REFERENCE_NET, *,
-                     impl=None) -> torch.Tensor:
-    """Full forward: analysis then synthesis."""
+                     phased: bool = True, impl=None) -> torch.Tensor:
+    """Full forward: analysis then synthesis.  ``impl``: None (the default
+    plan) or a per-layer tuple of plan names; ``phased=False`` with
+    ``impl=None`` runs the golden plan, as in the JAX package."""
+    if impl is None and not phased:
+        impl = GOLDEN_PLAN
     z = analysis_int8(params, x, cfg, impl=impl)
     return synthesis_int8(params, z, cfg, impl=impl)
+
+
+def random_params(cfg: ModelConfig = REFERENCE_NET, seed: int = 0
+                  ) -> Dict[str, torch.Tensor]:
+    """Random int4 weights / int8 biases with the reference's shapes, as
+    CPU tensors: the JAX package's ``random_params`` integers for the same
+    seed (numpy's generator, drawn in the same order)."""
+    rng = np.random.default_rng(seed)
+    params: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(cfg.layers):
+        params[f"w{i}"] = torch.from_numpy(rng.integers(
+            -8, 8, size=layer.weight_shape, dtype=np.int8))
+        params[f"b{i}"] = torch.from_numpy(rng.integers(
+            -128, 128, size=(layer.out_ch,), dtype=np.int8))
+    return params
 
 
 class IntCodecNet(nn.Module):

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from . import conv_fast
-from .conv_int import conv_acc_hwio, to_wire_int8, wrap_to_int8
+from .conv_int import conv_acc_hwio, phase_taps, to_wire_int8, wrap_to_int8
 
 # |acc| <= 9 * C * 128 * 128 must stay below 2^31 in the kernel's int32.
 _MAX_C = (1 << 31) // (9 * 128 * 128) - 1
@@ -474,18 +474,24 @@ def deconv_taps_d2s(w) -> tuple:
     (the ``deconv_weights_d2s`` geometry): 9/6/6/4 taps."""
     w = conv_fast.as_int8(w)
     taps, mats = [], []
-    for px in range(2):
-        for py in range(2):
-            for kx in range(5):
-                if (kx - (2 - px)) % 2:
-                    continue
-                for ky in range(5):
-                    if (ky - (2 - py)) % 2:
-                        continue
-                    d, e = (px + kx - 2) // 2, (py + ky - 2) // 2
-                    taps.append((d + 1, e + 1, 0, px * 2 + py, len(mats)))
-                    mats.append(w[:, kx, ky, :].T)
+    for p, phase in enumerate(phase_taps()):
+        for d, e, kx, ky in phase:
+            taps.append((d + 1, e + 1, 0, p, len(mats)))
+            mats.append(w[:, kx, ky, :].T)
     return tuple(taps), torch.stack(mats).contiguous()
+
+
+def deconv_taps_phases(w) -> list:
+    """[O, 5, 5, I] deconv kernel -> per output phase (px*2 + py), its own
+    (taps, w_taps (n, I, O)): the phase's 9/6/6/4 entries of
+    ``deconv_taps_d2s`` as one output block, for one launch of kernel F
+    each (the ``phased`` plan)."""
+    w = conv_fast.as_int8(w)
+    return [(tuple((d + 1, e + 1, 0, 0, j)
+                   for j, (d, e, _, _) in enumerate(phase)),
+             torch.stack([w[:, kx, ky, :].T for _, _, kx, ky in phase])
+             .contiguous())
+            for phase in phase_taps()]
 
 
 def _even_s2d(x: torch.Tensor) -> torch.Tensor:

@@ -212,16 +212,25 @@ def test_tiled_matches_jax(params):
 
 @pytest.mark.parametrize("name", ["laxf32", "s4d", "gemm", "phased", "tapn"])
 def test_unported_plan_names_raise(name):
-    tp = {f"w{i}": torch.zeros((1, 5, 5, 1), dtype=torch.int8)
-          for i in range(8)}
-    tp.update({f"b{i}": torch.zeros((1,), dtype=torch.int8)
-               for i in range(8)})
-    x = torch.zeros((1, 16, 16, 1), dtype=torch.int8)
+    """The five plan names the port once refused now run: the default plan
+    with one slot set to the name == the JAX net under the same plan, with
+    seeded random weights at 64x64.  A name of the wrong kind for its slot
+    still raises ValueError."""
     slot = 4 if name in ("phased", "tapn") else 0
     plan = list(codec_int.DEFAULT_PLAN)
     plan[slot] = name
-    with pytest.raises(NotImplementedError,
-                       match="the remaining int8 op forms"):
-        codec_int.eight_layers_net(tp, x, impl=plan)
+    x = np.random.default_rng(8).integers(0, 256, size=(1, 64, 64, 3),
+                                          dtype=np.uint8)
+    jp = j_net.random_params(seed=8)
+    ref = j_net.eight_layers_net({k: jnp.asarray(v) for k, v in jp.items()},
+                                 jnp.asarray(x.view(np.int8)),
+                                 j_geometry(64, 64), impl=tuple(plan))
+    tp = codec_int.random_params(seed=8)
+    got = codec_int.eight_layers_net(tp, torch.from_numpy(x),
+                                     reference_net_for_input(64, 64),
+                                     impl=plan)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     with pytest.raises(ValueError):
-        codec_int.eight_layers_net(tp, x, impl=("pallas3",) * 8)
+        codec_int.eight_layers_net(tp, torch.from_numpy(x),
+                                   reference_net_for_input(64, 64),
+                                   impl=("pallas3",) * 8)
