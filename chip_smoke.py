@@ -62,7 +62,18 @@ paths at full width on B random-seeded 768x512 images:
 * ``eval_codec.main`` with the argument lists of ``docs/RESULTS.md``'s
   synthetic rows: the int8 and the four wavelet codecs' bpp and PSNR equal
   to the JAX package's digits (``JAX_EVAL``), the float codecs' reported
-  beside their rows.
+  beside their rows;
+* the spatially sharded int8 codec (``parallel/``) on 1, 2 and 4 ranks,
+  processes started by ``spawn_ranks`` that share the card over gloo:
+  ``ShardedIntCodec`` with the main path's images, weights and tables,
+  each rank's launches gated (kernel A a layer, B once an encode, C once a
+  decode, no plain run) with the sharded route, the main path's containers
+  byte for byte, x_hat and z gathered from the tiles equal to the golden,
+  a corrupt container raised on every rank; on 4 ranks
+  ``eight_layers_net_sharded`` on a (2, 2) mesh under the default plan (A)
+  and pallas3 (F), equal to the golden.  The halo bytes staged through the
+  host and each rank count's encode and decode ms are printed, labelled as
+  ranks time-sliced on one card.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -2086,6 +2097,245 @@ def eval_path(card: str) -> dict:
     return counts
 
 
+# The sharded phase: ranks are processes sharing the one card over gloo
+# (NCCL refuses two ranks on one card), so their times are time-sliced,
+# not multi-chip scaling.
+SHARDED_RANKS = (1, 2, 4)
+SHARDED_TIMEOUT_S = 300
+SHARDED_CALLS = 5       # timed calls of each direction, each after a barrier
+# launches of one direction on each rank: kernel A a layer, B or C once
+SHARDED_ENC = {"conv3x3_s1_int8": 4, "conv_sparse_int8": 0,
+               "rans_encode": 1, "rans_decode": 0}
+SHARDED_DEC = {"conv3x3_s1_int8": 4, "conv_sparse_int8": 0,
+               "rans_encode": 0, "rans_decode": 1}
+# eight_layers_net_sharded on a (2, 2) mesh: launches on each rank
+MESH_2D = {"s2d": (None, {"conv3x3_s1_int8": 8, "conv_sparse_int8": 0}),
+           "pallas3": (PLANS["pallas3"][0],
+                       {"conv3x3_s1_int8": 0, "conv_sparse_int8": 8})}
+
+
+def rank_counts(expected: dict) -> dict:
+    """This rank's launch counts of ``expected``'s kernels and its plain
+    runs of every kernel."""
+    fns = counted()
+    return {"launches": {k: fns[k].launches for k in expected},
+            "plain": sum(fn.plain_runs for fn in fns.values())}
+
+
+def rank_ms(fn) -> float:
+    """Median host ms of ``fn`` over ``SHARDED_CALLS`` calls, each started
+    after a barrier of every rank on an idle card, ending in a
+    synchronize."""
+    from simple_image_compression_network_tpu_torch.parallel import (
+        distributed)
+    times = []
+    for _ in range(SHARDED_CALLS):
+        torch.cuda.synchronize()
+        distributed.barrier("timing", timeout_s=60)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def gloo_cuda_probe() -> dict:
+    """Which gloo collectives take CUDA tensors in this build (a report:
+    the port moves every message of a gloo mesh through host memory)."""
+    import torch.distributed as dist
+    t = torch.ones(4, device="cuda")
+    calls = {"all_reduce": lambda: dist.all_reduce(t),
+             "all_gather": lambda: dist.all_gather(
+                 [torch.empty_like(t) for _ in range(dist.get_world_size())],
+                 t)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except RuntimeError as e:
+            out[name] = f"raises {str(e).splitlines()[0][:80]}"
+    return out
+
+
+def sharded_rank(seed: int, batch: int) -> dict:
+    """One rank of the sharded phase (``spawn_ranks``): ShardedIntCodec on
+    a 1-D mesh of every rank at 768x512 (a warm-up round, then a counted
+    round, each direction's launches, routes and staged halo bytes read
+    right after it; the timed calls; a corrupt container), and on 4 ranks
+    ``eight_layers_net_sharded`` on a (2, 2) mesh under the default plan
+    and pallas3.  Returns host objects only; rank 0 also the gathered
+    tiles."""
+    import torch.distributed as dist
+    from simple_image_compression_network_tpu_torch.models import codec_int
+    from simple_image_compression_network_tpu_torch.parallel import (
+        entropy_sharded, mesh as meshlib, spatial)
+    from simple_image_compression_network_tpu_torch.utils import weights_io
+    n, rank = dist.get_world_size(), dist.get_rank()
+    ckpt = os.path.join(ROOT, "checkpoints")
+    mesh = meshlib.spatial_mesh(n)
+    net = codec_int.IntCodecNet.from_checkpoint(
+        os.path.join(ckpt, "reference_weights.npz"), device=mesh.device)
+    codec = entropy_sharded.ShardedIntCodec(
+        net, weights_io.load_static_cdfs(os.path.join(ckpt,
+                                                      "latent_cdfs.npz")),
+        mesh)
+    x = torch.from_numpy(make_images(seed, batch)).to(mesh.device)
+    codec.decompress_batch(codec.compress_batch(x))           # warm-up
+    torch.cuda.synchronize()
+    codec.routes.update(sharded=0, fallback=0)
+    out = {"rank": rank, "device": str(mesh.device)}
+    for direction, expected in (("encode", SHARDED_ENC),
+                                ("decode", SHARDED_DEC)):
+        reset_counts()
+        spatial.halo_exchange.staged_bytes = 0
+        if direction == "encode":
+            blobs = codec.compress_batch(x)
+        else:
+            x_hat, z = codec.decompress_batch(blobs)
+        torch.cuda.synchronize()
+        out[direction] = {**rank_counts(expected),
+                          "staged": spatial.halo_exchange.staged_bytes}
+    out["routes"] = dict(codec.routes)
+    out["blobs"] = blobs
+    out["tile"] = tuple(x_hat.shape)
+    x_full = spatial.gather_image(x_hat, mesh).cpu().numpy()
+    z_full = spatial.gather_image(z, mesh).cpu().numpy()
+    if rank == 0:
+        out["x_hat"], out["z"] = x_full, z_full
+    out["encode_ms"] = rank_ms(lambda: codec.compress_batch(x))
+    out["decode_ms"] = rank_ms(lambda: codec.decompress_batch(blobs))
+    bad = bytearray(blobs[-1])
+    bad[-3] ^= 0xFF
+    try:
+        codec.decompress_batch(blobs[:-1] + [bytes(bad)])
+        out["corrupt"] = None
+    except ValueError as e:
+        out["corrupt"] = str(e)
+    if n == 4:
+        mesh2 = meshlib.make_mesh((2, 2), ("x", "y"))
+        params = {k: v.to(mesh2.device) for k, v in
+                  weights_io.params_from_jax(weights_io.load_checkpoint(
+                      os.path.join(ckpt, "reference_weights.npz"))).items()}
+        tile = spatial.shard_image(x, mesh2, ("x", "y"))
+        for name, (impl, expected) in MESH_2D.items():
+            reset_counts()
+            y = spatial.eight_layers_net_sharded(params, tile, mesh2,
+                                                 axis_names=("x", "y"),
+                                                 impl=impl)
+            torch.cuda.synchronize()
+            out[f"2x2 {name}"] = rank_counts(expected)
+            y = spatial.gather_image(y, mesh2, ("x", "y")).cpu().numpy()
+            if rank == 0:
+                out[f"2x2 {name}"]["x_hat"] = y
+    if n == 2 and mesh.backend == "gloo":
+        out["gloo"] = gloo_cuda_probe()
+    return out
+
+
+def check_rank(n: int, res: dict, golden_blobs: list, backend: str) -> None:
+    """One rank's gates: both directions on the sharded route with the
+    expected launches and no plain run, the main path's containers, the
+    corrupt container raised, and under NCCL no byte staged through the
+    host."""
+    tag = f"sharded ({backend}), {n} rank(s), rank {res['rank']}"
+    if backend == "nccl" and (res["encode"]["staged"]
+                              or res["decode"]["staged"]):
+        raise AssertionError(f"{tag}: NCCL messages staged through the "
+                             f"host")
+    if res["routes"] != {"sharded": 2, "fallback": 0}:
+        raise AssertionError(f"{tag}: routes {res['routes']}")
+    for direction, expected in (("encode", SHARDED_ENC),
+                                ("decode", SHARDED_DEC)):
+        got = res[direction]
+        if got["launches"] != expected or got["plain"]:
+            raise AssertionError(f"{tag} {direction}: launches "
+                                 f"{got['launches']}, plain runs "
+                                 f"{got['plain']}; expected {expected}")
+    if res["blobs"] != golden_blobs:
+        raise AssertionError(f"{tag}: containers differ from the main "
+                             f"path's (single-device compress_batch)")
+    if res["corrupt"] != "corrupt stream in sharded decode":
+        raise AssertionError(f"{tag}: corrupt container gave "
+                             f"{res['corrupt']!r}")
+
+
+def sharded_path(seed: int, batch: int, golden: dict, card: str,
+                 backend: str = "gloo", sizes=SHARDED_RANKS) -> dict:
+    """The spatially sharded int8 codec at 768x512 on ``sizes`` ranks
+    (``spawn_ranks``; under gloo every rank on this card, under NCCL rank
+    r on card r; the kernels already built): on every rank the sharded
+    route in both directions, kernel A a layer, B once an encode, C once a
+    decode, no plain run, the main path's containers byte for byte, a
+    corrupt container raised; the gathered x_hat and z equal to the golden
+    and to ``IntCodecNet``; on 4 ranks the (2, 2) mesh under the default
+    plan (A) and pallas3 (F) equal to the golden.  Returns the launches by
+    path, summed over ranks."""
+    from simple_image_compression_network_tpu_torch.parallel import (
+        distributed)
+    x_ref = golden["x_ref"].cpu()
+    z_ref = golden["z_ref"].cpu()
+    net_ref = golden["net"](golden["x"]).cpu()
+    require_equal("IntCodecNet forward == golden", net_ref, x_ref)
+    counts, ms = {}, {}
+    for n in sizes:
+        t0 = time.perf_counter()
+        ranks = distributed.spawn_ranks(sharded_rank, n, backend=backend,
+                                        timeout_s=SHARDED_TIMEOUT_S,
+                                        args=(seed, batch))
+        wall = time.perf_counter() - t0
+        for res in ranks:
+            check_rank(n, res, golden["blobs"], backend)
+        require_equal(f"sharded {n}: gathered x_hat == golden",
+                      torch.from_numpy(ranks[0]["x_hat"]), x_ref)
+        require_equal(f"sharded {n}: gathered z == golden",
+                      torch.from_numpy(ranks[0]["z"]), z_ref)
+        counts[f"sharded {backend} {n}"] = {
+            k: sum(r[d]["launches"][k] for r in ranks
+                   for d in ("encode", "decode"))
+            for k in ("conv3x3_s1_int8", "rans_encode", "rans_decode")}
+        ms[n] = (ranks[0]["encode_ms"], ranks[0]["decode_ms"])
+        staged = [(r["encode"]["staged"], r["decode"]["staged"])
+                  for r in ranks]
+        log(f"sharded ({backend}) {n} rank(s): routes {ranks[0]['routes']} "
+            f"on every rank, launches a rank encode "
+            f"{ranks[0]['encode']['launches']}"
+            f", decode {ranks[0]['decode']['launches']}, plain runs 0; "
+            f"containers == the main path's; x_hat, z gathered from tiles "
+            f"{ranks[0]['tile']} == golden, == IntCodecNet; corrupt "
+            f"container raised on every rank; spawn to results {wall:.1f} s")
+        log(f"sharded ({backend}) {n} rank(s): halo bytes staged through "
+            f"the host a pass (encode, decode) by rank: {staged}")
+        if "gloo" in ranks[0]:
+            log(f"gloo collectives on CUDA tensors: {ranks[0]['gloo']}")
+        if n == 4:
+            for name, (_, expected) in MESH_2D.items():
+                for res in ranks:
+                    got = res[f"2x2 {name}"]
+                    if got["launches"] != expected or got["plain"]:
+                        raise AssertionError(
+                            f"(2, 2) mesh {name}, rank {res['rank']}: "
+                            f"launches {got['launches']}, plain runs "
+                            f"{got['plain']}; expected {expected}")
+                require_equal(f"(2, 2) mesh {name}: gathered x_hat == golden",
+                              torch.from_numpy(ranks[0][f"2x2 {name}"]
+                                               ["x_hat"]), x_ref)
+                counts[f"sharded {backend} 2x2 {name}"] = {
+                    k: v * 4 for k, v in expected.items()}
+                log(f"eight_layers_net_sharded on a (2, 2) mesh, {name}: "
+                    f"launches a rank {expected}, plain runs 0; x_hat == "
+                    f"golden")
+    where = ("ranks time-sliced on one card (gloo)" if backend == "gloo"
+             else f"a card a rank ({backend})")
+    for n, (enc, dec) in ms.items():
+        log(f"sharded [{card}] {n} rank(s), {where}: encode {enc:.4f} ms, "
+            f"decode {dec:.4f} ms at B={batch} "
+            f"{H}x{W} (rank 0's host clock, median of {SHARDED_CALLS} "
+            f"calls, each after a barrier)")
+    return counts
+
+
 def chain_path(batch: int, golden: dict, card: str) -> dict:
     """``DeviceChain`` at 768x512: built (one eager run of each program,
     then its capture as a CUDA graph) with the launch counts read around
@@ -2811,10 +3061,12 @@ def main() -> int:
         host = host_coders_path(args.seed, args.batch, golden, codec, smi)
     with phase("eval_codec entry point, 4 synthetic 768x512 images"):
         evals = eval_path(smi)
+    with phase("sharded int8 codec at 768x512 on 1, 2 and 4 ranks"):
+        sharded = sharded_path(args.seed, args.batch, golden, smi)
     del golden
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
              "meanscale": meanscale, **bf16, "device chain": chain, **piped,
-             **wavelet, **host, **evals}
+             **wavelet, **host, **evals, **sharded}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

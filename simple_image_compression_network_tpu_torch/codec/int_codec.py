@@ -372,6 +372,19 @@ def _decompress_host(net: IntCodecNet, metas: List[Tuple],
     return net.synthesis(z), z
 
 
+def _upload_streams(chunks: Sequence[bytes], dev: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ilrans streams -> ((S, cap) int16 words past each header, (S,)
+    int32 word counts) on ``dev``, in one pinned upload that does not wait
+    for the stream: the words first (16-byte aligned for the kernel), the
+    counts after."""
+    words, true_counts = device_rans.gather_words(chunks)
+    up = device_rans.to_device_async(np.concatenate([
+        words.reshape(-1), true_counts.view(np.uint16)]).view(np.int16), dev)
+    return (up[:words.size].view(words.shape),
+            up[words.size:].view(torch.int32))
+
+
 def _decompress_schedule(net: IntCodecNet, metas: List[Tuple],
                          static_cdfs: np.ndarray | None) -> Tuple:
     """Upload the words and counts of parsed containers (``_parse``) in
@@ -384,14 +397,9 @@ def _decompress_schedule(net: IntCodecNet, metas: List[Tuple],
     n_syms, n_lanes, _, _ = ilrans.unpack_header(metas[0][2][0])
     t_steps = n_syms // n_lanes
 
-    words, true_counts = device_rans.gather_words(
-        [chunk for m in metas for chunk in m[2]])
     dev = net.device
-    # words first (16-byte aligned for the kernel), the counts after
-    up = device_rans.to_device_async(np.concatenate([
-        words.reshape(-1), true_counts.view(np.uint16)]).view(np.int16), dev)
-    wdev = up[:words.size].view(words.shape)
-    counts = up[words.size:].view(torch.int32)
+    wdev, counts = _upload_streams([chunk for m in metas for chunk in m[2]],
+                                   dev)
     if any(m[1] for m in metas):
         lanes = _image_lane_tables(
             [_tables_of(m, static_cdfs) for m in metas], n_lanes, dev)

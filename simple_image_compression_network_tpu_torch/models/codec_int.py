@@ -172,10 +172,14 @@ class IntCodecNet(nn.Module):
     def device(self) -> torch.device:
         return self.w3_0.device
 
-    def _layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
+    def _layer(self, i: int, h: torch.Tensor,
+               valid: bool = False) -> torch.Tensor:
+        """Layer i's 3x3 conv on kernel A: SAME, or VALID on both axes
+        (``valid``: the input carries the 1-pixel halo, as the sharded net
+        gives it)."""
         return cuda_conv._conv3x3(h, getattr(self, f"w3_{i}"),
-                                  getattr(self, f"b_{i}"), True, False,
-                                  False, getattr(self, f"wp_{i}"))
+                                  getattr(self, f"b_{i}"), True, valid,
+                                  valid, getattr(self, f"wp_{i}"))
 
     def analysis(self, x: torch.Tensor) -> torch.Tensor:
         """uint8/int8 (B, X, Y, 3) -> int8 latent (B, X/16, Y/16, 192)."""

@@ -15,6 +15,8 @@ from simple_image_compression_network_tpu_torch import _build, eval_codec
 from simple_image_compression_network_tpu_torch.codec import hyper_codec, rans
 from simple_image_compression_network_tpu_torch.models import (
     codec_int, hyperprior)
+from simple_image_compression_network_tpu_torch.parallel import (
+    distributed, mesh as meshlib)
 from simple_image_compression_network_tpu_torch.utils import device
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -58,6 +60,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                    for i in range(8)})
     with pytest.raises(RuntimeError):
         codec_int.IntCodecNet(params)
+    # the sharded codec's entry points: a mesh (which ShardedIntCodec and
+    # eight_layers_net_sharded take their device from) and spawn_ranks
+    for make in (lambda: meshlib.make_mesh((1,), ("x",)),
+                 lambda: meshlib.spatial_mesh(1, device="cuda"),
+                 lambda: distributed.spawn_ranks(print, 1, backend="gloo")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     assert device.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -105,7 +114,9 @@ def test_new_modules_fall_under_the_import_probe():
                 "models.tiled", "codec.rans", "codec.wavelet_codec",
                 "intnet_haar", "eval_codec", "utils.data", "ops.integer",
                 "ops.nn", "ops.tmr", "utils.native_golden", "utils.checks",
-                "utils.dump", "utils.profiling", "utils.cache"):
+                "utils.dump", "utils.profiling", "utils.cache",
+                "parallel.mesh", "parallel.distributed", "parallel.spatial",
+                "parallel.entropy_sharded"):
         assert f"{port.__name__}.{mod}" in names
 
 
