@@ -73,7 +73,19 @@ paths at full width on B random-seeded 768x512 images:
   ``eight_layers_net_sharded`` on a (2, 2) mesh under the default plan (A)
   and pallas3 (F), equal to the golden.  The halo bytes staged through the
   host and each rank count's encode and decode ms are printed, labelled as
-  ranks time-sliced on one card.
+  ranks time-sliced on one card;
+* in the same ranks, the spatially sharded hyperprior codecs
+  (``ShardedHyperCodec``), both trained models on B 1024x1024 images
+  (both stream plans tile there; at 768x512 the z plan has one stream):
+  on every rank the sharded route, B and D once an encode, C and E once a
+  decode, no conv kernel and no plain run, a corrupt container raised,
+  at 2 ranks 768x512 refused; against the single-device codecs, the
+  containers decoding under each other exactly both ways, the z and y
+  symbols equal off their rounding ties (counted), the containers
+  byte-identical or each difference shown to be a tie that flipped, and
+  x_hat within 1e-4.  Reported: the halo bytes staged, on 4 ranks each
+  tile conv's bitwise differences from the whole image's conv, encode,
+  decode and h_s ms beside the single-device codec's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -107,6 +119,7 @@ import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -444,17 +457,17 @@ def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> int:
     return err
 
 
-def make_images(seed: int, b: int) -> np.ndarray:
-    """Smooth colour gradients plus noise, uint8 (B, 768, 512, 3)."""
+def make_images(seed: int, b: int, h: int = H, w: int = W) -> np.ndarray:
+    """Smooth colour gradients plus noise, uint8 (B, h, w, 3)."""
     rng = np.random.default_rng(seed)
-    i = np.arange(H, dtype=np.float64)[:, None, None]
-    j = np.arange(W, dtype=np.float64)[None, :, None]
+    i = np.arange(h, dtype=np.float64)[:, None, None]
+    j = np.arange(w, dtype=np.float64)[None, :, None]
     out = []
     for _ in range(b):
         f = rng.uniform(0.005, 0.03, size=(2, 3))
         ph = rng.uniform(0, 2 * np.pi, size=(2, 3))
         img = (128 + 70 * np.sin(f[0] * i + ph[0]) * np.cos(f[1] * j + ph[1])
-               + rng.normal(0, 6, size=(H, W, 3)))
+               + rng.normal(0, 6, size=(h, w, 3)))
         out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
     return np.stack(out)
 
@@ -1833,13 +1846,8 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
             torch.isfinite(x_hat).all()):
         raise AssertionError(f"hyper x_hat: shape {tuple(x_hat.shape)} "
                              f"or non-finite values")
-    from simple_image_compression_network_tpu_torch.codec import container
-    _, sections = container.unpack(blobs[-1])
-    y_end = len(blobs[-1]) - len(sections[3]) - len(sections[4])
-    bad = bytearray(blobs[-1])
-    bad[y_end - len(sections[2]) // 2] ^= 0xFF    # a word of the y streams
     try:
-        codec.decompress_batch(blobs[:-1] + [bytes(bad)])
+        codec.decompress_batch(blobs[:-1] + [corrupt_y(blobs[-1])])
     except ValueError as e:
         log(f"corrupt hyper container rejected: {e}")
     else:
@@ -1903,7 +1911,7 @@ def meanscale_path(seed: int, batch: int, dev, card: str, codec,
     decide them).  Reported: bytes, bpp and PSNR beside the scale model's, encode
     and decode ms, peak memory.  Returns the launch counts."""
     from simple_image_compression_network_tpu_torch.codec import (
-        container, cuda_rans, escape, hyper_codec)
+        cuda_rans, escape, hyper_codec)
     x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
     x = x.to(torch.float32) / 255.0
 
@@ -1955,12 +1963,8 @@ def meanscale_path(seed: int, batch: int, dev, card: str, codec,
         f"in [{int(sym.min())}, {int(sym.max())}]), kernels B, C == plain "
         f"on its z ({int(z_words.sum())} words)")
 
-    _, sections = container.unpack(blobs[-1])
-    y_end = len(blobs[-1]) - len(sections[3]) - len(sections[4])
-    bad = bytearray(blobs[-1])
-    bad[y_end - len(sections[2]) // 2] ^= 0xFF
     try:
-        codec.decompress_batch(blobs[:-1] + [bytes(bad)])
+        codec.decompress_batch(blobs[:-1] + [corrupt_y(blobs[-1])])
     except ValueError as e:
         log(f"corrupt meanscale container rejected: {e}")
     else:
@@ -2159,14 +2163,15 @@ def gloo_cuda_probe() -> dict:
     return out
 
 
-def sharded_rank(seed: int, batch: int) -> dict:
+def sharded_rank(seed: int, batch: int, hyper_blobs: dict) -> dict:
     """One rank of the sharded phase (``spawn_ranks``): ShardedIntCodec on
     a 1-D mesh of every rank at 768x512 (a warm-up round, then a counted
     round, each direction's launches, routes and staged halo bytes read
     right after it; the timed calls; a corrupt container), and on 4 ranks
     ``eight_layers_net_sharded`` on a (2, 2) mesh under the default plan
-    and pallas3.  Returns host objects only; rank 0 also the gathered
-    tiles."""
+    and pallas3; then ``sharded_hyper_rank`` with the single-device hyper
+    containers ``hyper_blobs``, in the same process.  Returns host objects
+    only; rank 0 also the gathered tiles."""
     import torch.distributed as dist
     from simple_image_compression_network_tpu_torch.models import codec_int
     from simple_image_compression_network_tpu_torch.parallel import (
@@ -2231,6 +2236,7 @@ def sharded_rank(seed: int, batch: int) -> dict:
                 out[f"2x2 {name}"]["x_hat"] = y
     if n == 2 and mesh.backend == "gloo":
         out["gloo"] = gloo_cuda_probe()
+    out["hyper"] = sharded_hyper_rank(seed, batch, hyper_blobs)
     return out
 
 
@@ -2261,8 +2267,9 @@ def check_rank(n: int, res: dict, golden_blobs: list, backend: str) -> None:
                              f"{res['corrupt']!r}")
 
 
-def sharded_path(seed: int, batch: int, golden: dict, card: str,
-                 backend: str = "gloo", sizes=SHARDED_RANKS) -> dict:
+def sharded_path(seed: int, batch: int, golden: dict, hyper_codecs: dict,
+                 card: str, backend: str = "gloo",
+                 sizes=SHARDED_RANKS) -> dict:
     """The spatially sharded int8 codec at 768x512 on ``sizes`` ranks
     (``spawn_ranks``; under gloo every rank on this card, under NCCL rank
     r on card r; the kernels already built): on every rank the sharded
@@ -2270,20 +2277,23 @@ def sharded_path(seed: int, batch: int, golden: dict, card: str,
     decode, no plain run, the main path's containers byte for byte, a
     corrupt container raised; the gathered x_hat and z equal to the golden
     and to ``IntCodecNet``; on 4 ranks the (2, 2) mesh under the default
-    plan (A) and pallas3 (F) equal to the golden.  Returns the launches by
-    path, summed over ranks."""
+    plan (A) and pallas3 (F) equal to the golden.  The same ranks then run
+    the sharded hyper cases against ``hyper_codecs``, the single-device
+    codecs by model (``sharded_hyper_rank``, ``check_hyper_group``).
+    Returns the launches by path, summed over ranks."""
     from simple_image_compression_network_tpu_torch.parallel import (
         distributed)
     x_ref = golden["x_ref"].cpu()
     z_ref = golden["z_ref"].cpu()
     net_ref = golden["net"](golden["x"]).cpu()
     require_equal("IntCodecNet forward == golden", net_ref, x_ref)
-    counts, ms = {}, {}
+    hyper = hyper_golden(seed, batch, hyper_codecs)
+    counts, ms, hyper_ms = {}, {}, {}
     for n in sizes:
         t0 = time.perf_counter()
-        ranks = distributed.spawn_ranks(sharded_rank, n, backend=backend,
-                                        timeout_s=SHARDED_TIMEOUT_S,
-                                        args=(seed, batch))
+        ranks = distributed.spawn_ranks(
+            sharded_rank, n, backend=backend, timeout_s=SHARDED_TIMEOUT_S,
+            args=(seed, batch, {f: g["blobs"] for f, g in hyper.items()}))
         wall = time.perf_counter() - t0
         for res in ranks:
             check_rank(n, res, golden["blobs"], backend)
@@ -2326,6 +2336,9 @@ def sharded_path(seed: int, batch: int, golden: dict, card: str,
                 log(f"eight_layers_net_sharded on a (2, 2) mesh, {name}: "
                     f"launches a rank {expected}, plain runs 0; x_hat == "
                     f"golden")
+        got, hyper_ms[n] = check_hyper_group(
+            n, [r["hyper"] for r in ranks], hyper, hyper_codecs, backend)
+        counts.update(got)
     where = ("ranks time-sliced on one card (gloo)" if backend == "gloo"
              else f"a card a rank ({backend})")
     for n, (enc, dec) in ms.items():
@@ -2333,7 +2346,326 @@ def sharded_path(seed: int, batch: int, golden: dict, card: str,
             f"decode {dec:.4f} ms at B={batch} "
             f"{H}x{W} (rank 0's host clock, median of {SHARDED_CALLS} "
             f"calls, each after a barrier)")
+    for n, by_fam in hyper_ms.items():
+        for fam, (enc, dec, hs) in by_fam.items():
+            g = hyper[fam]
+            log(f"sharded {fam} [{card}] {n} rank(s), {where}: encode "
+                f"{enc:.4f} ms, decode {dec:.4f} ms, of them h_s on the "
+                f"whole z_hat {hs:.4f} ms on every rank, at B={batch} "
+                f"{HYPER_SIDE}x{HYPER_SIDE} (rank 0's host clock, median of "
+                f"{SHARDED_CALLS} calls, each after a barrier); single-"
+                f"device encode {g['encode_ms']:.4f} ms, decode "
+                f"{g['decode_ms']:.4f} ms, h_s {g['h_s_ms']:.4f} ms (median "
+                f"of {MEDIAN_CALLS})")
     return counts
+
+
+# The sharded hyperprior phase: both trained models at 1024x1024, where the
+# z plan (S_z = 4) and the y plan (S_y = 8) tile over 1, 2 and 4 ranks (at
+# 768x512 S_z = 1 tiles over none but 1).  Launches of one direction on
+# each rank: B and D an encode, C and E a decode, no conv kernel.
+HYPER_SIDE = 1024
+SHARDED_HYPER_ENC = {"rans_encode": 1, "rans_encode_ctx": 1,
+                     "rans_decode": 0, "rans_decode_ctx": 0,
+                     "conv3x3_s1_int8": 0, "conv_sparse_int8": 0}
+SHARDED_HYPER_DEC = {"rans_encode": 0, "rans_encode_ctx": 0,
+                     "rans_decode": 1, "rans_decode_ctx": 1,
+                     "conv3x3_s1_int8": 0, "conv_sparse_int8": 0}
+HYPER_X_TOL = 1e-4      # max |x_hat| difference, tiled g_s against whole
+
+
+def hyper_images(seed: int, batch: int, h: int = HYPER_SIDE,
+                 w: int = HYPER_SIDE) -> np.ndarray:
+    """``make_images``' smooth gradients (the hyper paths' seed), float32
+    in [0, 1]."""
+    return make_images(seed + 1, batch, h, w).astype(np.float32) / 255
+
+
+def corrupt_y(blob: bytes) -> bytes:
+    """A byte flipped in the middle of the words of the middle y stream of
+    a hyper container (the stream of a middle rank)."""
+    from simple_image_compression_network_tpu_torch.codec import container
+    _, sections = container.unpack(blob)
+    y_pay = sections[2]
+    off = len(blob) - len(sections[4]) - len(sections[3]) - len(y_pay) + 2
+    for _ in range(struct.unpack_from("<H", y_pay)[0] // 2):
+        off += 4 + struct.unpack_from("<I", blob, off)[0]
+    bad = bytearray(blob)
+    bad[off + 4 + struct.unpack_from("<I", blob, off)[0] // 2] ^= 0xFF
+    return bytes(bad)
+
+
+def tile_layer_diffs(model, x: torch.Tensor, y_hat: torch.Tensor,
+                     mesh) -> dict:
+    """Per conv layer of g_a, h_a and g_s, run on the whole image's own
+    activations: how many output elements of this rank's tile conv differ
+    bitwise from the same rows of the whole-image conv (the exposure to
+    cuDNN choosing its algorithm by shape)."""
+    from simple_image_compression_network_tpu_torch.models.hyperprior import (
+        _Deconv)
+    from simple_image_compression_network_tpu_torch.parallel import (
+        hyper_sharded)
+    names = {id(m): name for name, m in model.named_modules()}
+    k, n = mesh.coord("x"), mesh.size("x")
+    diffs = {}
+
+    def conv(layer, h):
+        whole = layer(h)
+        rows, out_rows = h.shape[2] // n, whole.shape[2] // n
+        tile = (hyper_sharded.deconv_tile if isinstance(layer, _Deconv)
+                else hyper_sharded.conv_tile)(
+            layer, h.narrow(2, k * rows, rows).contiguous(), mesh)
+        diffs[names[id(layer)]] = int(
+            (tile != whole.narrow(2, k * out_rows, out_rows)).sum())
+        return whole
+
+    model.analysis_arrays(x, conv=conv)
+    model.decode_arrays(y_hat, conv=conv)
+    return diffs
+
+
+def sharded_hyper_rank(seed: int, batch: int, golden_blobs: dict) -> dict:
+    """One rank of the sharded hyper phase (``spawn_ranks``): for each
+    trained model, ``ShardedHyperCodec`` on a 1-D mesh of every rank at
+    1024x1024 (a warm-up round, then a counted round with each direction's
+    launches, routes and staged halo bytes read right after it), the
+    single-device containers decoded, the timed calls, the h_s every rank
+    runs, and a corrupt container; on 2 ranks 768x512 refused; on 4 ranks
+    the tile convs against the whole image's.  Returns host objects only;
+    rank 0 also the gathered tiles."""
+    import torch.distributed as dist
+    from simple_image_compression_network_tpu_torch.codec import hyper_codec
+    from simple_image_compression_network_tpu_torch.parallel import (
+        hyper_sharded, mesh as meshlib, spatial)
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = meshlib.spatial_mesh(n)
+    x = torch.from_numpy(hyper_images(seed, batch)).to(mesh.device)
+    out = {"rank": rank}
+    for fam, cls in (("scale", hyper_codec.HyperCodec),
+                     ("meanscale", hyper_codec.MeanScaleCodec)):
+        t0 = time.perf_counter()
+        codec = cls.from_checkpoint(CKPTS[fam], device=mesh.device)
+        sh = hyper_sharded.ShardedHyperCodec(codec, mesh)
+        t1 = time.perf_counter()
+        sh.decompress_batch(sh.compress_batch(x))               # warm-up
+        torch.cuda.synchronize()
+        sh.routes.update(sharded=0, fallback=0)
+        res = {"stages": {"load": t1 - t0,
+                          "warm-up round": time.perf_counter() - t1}}
+        t1 = time.perf_counter()
+        for direction, expected in (("encode", SHARDED_HYPER_ENC),
+                                    ("decode", SHARDED_HYPER_DEC)):
+            reset_counts()
+            spatial.halo_exchange.staged_bytes = 0
+            if direction == "encode":
+                blobs = sh.compress_batch(x)
+            else:
+                x_hat, y_hat = sh.decompress_batch(blobs)
+            torch.cuda.synchronize()
+            res[direction] = {**rank_counts(expected),
+                              "staged": spatial.halo_exchange.staged_bytes}
+        res["routes"] = dict(sh.routes)
+        res["blobs"] = blobs
+        res["tile"] = tuple(x_hat.shape)
+        x1, y1 = sh.decompress_batch(golden_blobs[fam])
+        whole = {k: spatial.gather_image(t, mesh).cpu().numpy()
+                 for k, t in (("x_hat", x_hat), ("y_hat", y_hat),
+                              ("x_single", x1), ("y_single", y1))}
+        if rank == 0:
+            res.update(whole)
+        res["stages"]["counted round, gathers"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["encode_ms"] = rank_ms(lambda: sh.compress_batch(x))
+        res["decode_ms"] = rank_ms(lambda: sh.decompress_batch(blobs))
+        z = spatial.gather_image(hyper_sharded.analysis_local(
+            codec.model, spatial.shard_image(x, mesh), mesh)[1], mesh)
+        res["h_s_ms"] = rank_ms(lambda: codec._prior_from_z(z))
+        res["stages"]["timed calls"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        try:
+            sh.decompress_batch(blobs[:-1] + [corrupt_y(blobs[-1])])
+            res["corrupt"] = None
+        except ValueError as e:
+            res["corrupt"] = str(e)
+        if n == 2:
+            x768 = torch.from_numpy(hyper_images(seed, batch, H, W))
+            try:
+                sh.compress_batch(x768.to(mesh.device))
+                res["refused"] = None
+            except ValueError as e:
+                res["refused"] = str(e)
+        if n == 4:
+            res["layers"] = tile_layer_diffs(
+                codec.model, x, torch.from_numpy(whole["y_hat"]).to(
+                    mesh.device), mesh)
+        res["stages"]["checks"] = time.perf_counter() - t1
+        out[fam] = res
+    return out
+
+
+def check_hyper_rank(n: int, fam: str, res: dict, backend: str) -> None:
+    """One rank's gates for one model: the sharded route both ways, the
+    expected launches with no plain run, the corrupt container raised, at
+    2 ranks the 768x512 plan refused, and under NCCL no byte staged."""
+    tag = f"sharded {fam} ({backend}), {n} rank(s), rank {res['rank']}"
+    got = res[fam]
+    if backend == "nccl" and (got["encode"]["staged"]
+                              or got["decode"]["staged"]):
+        raise AssertionError(f"{tag}: NCCL messages staged through the "
+                             f"host")
+    if got["routes"] != {"sharded": 2, "fallback": 0}:
+        raise AssertionError(f"{tag}: routes {got['routes']}")
+    for direction, expected in (("encode", SHARDED_HYPER_ENC),
+                                ("decode", SHARDED_HYPER_DEC)):
+        if got[direction]["launches"] != expected or got[direction]["plain"]:
+            raise AssertionError(f"{tag} {direction}: launches "
+                                 f"{got[direction]['launches']}, plain runs "
+                                 f"{got[direction]['plain']}; expected "
+                                 f"{expected}")
+    if got["corrupt"] != "corrupt latent stream":
+        raise AssertionError(f"{tag}: corrupt container gave "
+                             f"{got['corrupt']!r}")
+    if n == 2 and got["refused"] != ("z stream plan S=1, rows=12 does not "
+                                     "tile over 2 ranks"):
+        raise AssertionError(f"{tag}: 768x512 gave {got['refused']!r}")
+
+
+def hyper_golden(seed: int, batch: int, codecs: dict) -> dict:
+    """The single-device codecs at 1024x1024: per model the containers,
+    y_hat, z_hat and x_hat of their decode, the symbols, the values whose
+    rounding gives y's symbols (y, or y - mu) and z's (h_a's output), and
+    encode, decode and h_s ms (host clock, median of 5)."""
+    from simple_image_compression_network_tpu_torch.models.hyperprior import (
+        _exact_float, _nchw, _nhwc)
+    out = {}
+    for fam, codec in codecs.items():
+        x = torch.from_numpy(hyper_images(seed, batch)).to(codec.device)
+        blobs = codec.compress_batch(x)
+        x_hat, y_hat, z_hat = codec.decompress_batch(blobs, return_z=True)
+        sym, z, mu, _ = codec.encode_arrays(x)
+        y, _ = codec.model.analysis_arrays(x)
+        with torch.no_grad(), _exact_float():
+            z_pre = _nhwc(codec.model.h_a(_nchw(y)))
+        out[fam] = {"blobs": blobs, "x_hat": x_hat, "y_hat": y_hat,
+                    "z": z, "sym": sym, "mu": mu, "y": y, "z_pre": z_pre,
+                    "encode_ms": median_ms(lambda: codec.compress_batch(x)),
+                    "decode_ms": median_ms(
+                        lambda: codec.decompress_batch(blobs)),
+                    "h_s_ms": median_ms(lambda: codec._prior_from_z(z_hat))}
+    return out
+
+
+def check_hyper_outputs(n: int, fam: str, codec, gold: dict, ranks: list,
+                        backend: str) -> None:
+    """The gathered outputs of one model against the single-device codec:
+    cross-decoding exact both ways; z and y symbols equal off rounding ties
+    (counted); containers byte-identical, or every difference a tie that
+    flipped (printed); y_hat equal to the golden off those ties, exactly
+    where the containers are identical; x_hat within ``HYPER_X_TOL``."""
+    tag = f"sharded {fam} ({backend}) {n} rank(s)"
+    r0 = ranks[0][fam]
+    if any(res[fam]["blobs"] != r0["blobs"] for res in ranks):
+        raise AssertionError(f"{tag}: ranks returned different containers")
+    dev = gold["y_hat"].device
+    y_hat = torch.from_numpy(r0["y_hat"]).to(dev)
+    # the single-device containers under the sharded codec
+    require_identical(f"{tag}: single-device containers decoded sharded, "
+                      f"y_hat == golden", torch.from_numpy(
+                          r0["y_single"]).to(dev), gold["y_hat"])
+    x_single = (torch.from_numpy(r0["x_single"]).to(dev)
+                - gold["x_hat"]).abs().max().item()
+    # the sharded containers under the single-device codec
+    x_s1, y_s1, z_s1 = codec.decompress_batch(r0["blobs"], return_z=True)
+    require_identical(f"{tag}: sharded containers decoded by the single-"
+                      f"device codec, y_hat == the sharded decode's",
+                      y_s1, y_hat)
+    mu_s = codec._prior_from_z(z_s1)[0]
+    z_ties = ties(gold["z_pre"])
+    z_off = (z_s1.to(torch.int32) != gold["z"]) & ~z_ties
+    if bool(z_off.any()):
+        raise AssertionError(f"{tag}: z symbols differ from the single-"
+                             f"device encode's at {int(z_off.sum())} "
+                             f"positions off the ties")
+    if mu_s is None:
+        sym_s = y_s1.to(torch.int32)
+        y_ties = ties(gold["y"])
+    else:
+        sym_s = torch.round(y_s1 - mu_s).to(torch.int32)
+        y_ties = ties(gold["y"] - gold["mu"]) | ties(gold["y"] - mu_s)
+    y_diff = sym_s != gold["sym"]
+    if bool((y_diff & ~y_ties).any()):
+        raise AssertionError(f"{tag}: y symbols differ from the single-"
+                             f"device encode's at "
+                             f"{int((y_diff & ~y_ties).sum())} positions "
+                             f"off the ties")
+    same = r0["blobs"] == gold["blobs"]
+    if same:
+        require_identical(f"{tag}: gathered y_hat == golden", y_hat,
+                          gold["y_hat"])
+    else:
+        off = (y_hat != gold["y_hat"]) & ~y_ties
+        if bool(off.any()):
+            raise AssertionError(f"{tag}: y_hat differs from the golden at "
+                                 f"{int(off.sum())} positions off the ties")
+    x_err = (torch.from_numpy(r0["x_hat"]).to(dev)
+             - gold["x_hat"]).abs().max().item()
+    if max(x_err, x_single) > HYPER_X_TOL:
+        raise AssertionError(f"{tag}: x_hat max |diff| {x_err} (sharded "
+                             f"containers), {x_single} (single-device "
+                             f"containers) > {HYPER_X_TOL}")
+    n_diff = sum(a != b for a, b in zip(r0["blobs"], gold["blobs"]))
+    log(f"{tag}: routes {r0['routes']} on every rank, launches a rank "
+        f"encode {r0['encode']['launches']}, decode "
+        f"{r0['decode']['launches']}, plain runs 0; tiles {r0['tile']}; "
+        f"containers "
+        + ("byte-identical to the single-device codec's" if same else
+           f"differ from the single-device codec's in {n_diff} of "
+           f"{len(r0['blobs'])}: z symbols differing "
+           f"{int((z_s1.to(torch.int32) != gold['z']).sum())}, y symbols "
+           f"differing {int(y_diff.sum())}, each at a tie")
+        + f"; cross-decoding exact both ways; symbols off the ties equal "
+        f"(z: {int(z_ties.sum())} ties, y: {int(y_ties.sum())} ties within "
+        f"{TIE} of a half; differing at ties: z "
+        f"{int((z_s1.to(torch.int32) != gold['z']).sum())}, y "
+        f"{int(y_diff.sum())}); gathered y_hat "
+        + ("== golden" if same else "== golden off the ties")
+        + f"; x_hat max |diff| {x_err} (sharded containers), {x_single} "
+        f"(single-device containers) <= {HYPER_X_TOL}; corrupt container "
+        f"raised on every rank")
+
+
+def check_hyper_group(n: int, ranks: list, gold: dict, codecs: dict,
+                      backend: str) -> tuple:
+    """The sharded hyper results of one group of ``n`` ranks, gated by
+    ``check_hyper_rank`` on every rank and ``check_hyper_outputs`` against
+    the single-device codecs' run (``hyper_golden``); logs the halo bytes
+    staged and, on 4 ranks, each tile conv's bitwise differences from the
+    whole image's.  Returns (launches by path summed over ranks, rank 0's
+    (encode, decode, h_s) ms by model)."""
+    counts, ms = {}, {}
+    for fam, codec in codecs.items():
+        for res in ranks:
+            check_hyper_rank(n, fam, res, backend)
+        check_hyper_outputs(n, fam, codec, gold[fam], ranks, backend)
+        counts[f"sharded hyper {backend} {n} {fam}"] = {
+            k: sum(r[fam][d]["launches"][k] for r in ranks
+                   for d in ("encode", "decode"))
+            for k in HYPER_ROUND}
+        ms[fam] = tuple(ranks[0][fam][k]
+                        for k in ("encode_ms", "decode_ms", "h_s_ms"))
+        staged = [(r[fam]["encode"]["staged"], r[fam]["decode"]["staged"])
+                  for r in ranks]
+        log(f"sharded {fam} ({backend}) {n} rank(s): halo bytes staged "
+            f"through the host a pass (encode, decode) by rank: {staged}; "
+            f"rank 0's s by stage: "
+            f"{ {k: round(v, 3) for k, v in ranks[0][fam]['stages'].items()} }")
+        if n == 4:
+            layers = {k: sum(r[fam]["layers"][k] for r in ranks)
+                      for k in ranks[0][fam]["layers"]}
+            log(f"sharded {fam} 4 ranks: output elements of the tile convs "
+                f"that differ bitwise from the whole image's, by layer "
+                f"(summed over ranks): {layers}")
+    return counts, ms
 
 
 def chain_path(batch: int, golden: dict, card: str) -> dict:
@@ -3061,8 +3393,10 @@ def main() -> int:
         host = host_coders_path(args.seed, args.batch, golden, codec, smi)
     with phase("eval_codec entry point, 4 synthetic 768x512 images"):
         evals = eval_path(smi)
-    with phase("sharded int8 codec at 768x512 on 1, 2 and 4 ranks"):
-        sharded = sharded_path(args.seed, args.batch, golden, smi)
+    with phase("sharded int8 codec at 768x512 and hyperprior codecs at "
+               "1024x1024 on 1, 2 and 4 ranks"):
+        sharded = sharded_path(args.seed, args.batch, golden,
+                               {"scale": codec, "meanscale": ms_codec}, smi)
     del golden
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
              "meanscale": meanscale, **bf16, "device chain": chain, **piped,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's spatially sharded int8 codec over NCCL, one card a rank.
+"""The port's spatially sharded codecs over NCCL, one card a rank.
 
     python3 scripts/torch_sharded_nccl.py [--seed N] [--batch B]
 
@@ -11,9 +11,14 @@ kernel A a layer, B once an encode, C once a decode, no plain run, the
 main path's containers byte for byte, the gathered x_hat and z equal to the
 golden, a corrupt container raised on every rank, no byte staged through
 the host; on 4 ranks the (2, 2) mesh under the default plan and pallas3.
-Prints every card's name and power limit and each rank count's encode and
-decode ms (rank 0's host clock, median of 5).  Exits non-zero on any
-failure, or with too few cards.
+In the same ranks, ``chip_smoke.py``'s sharded hyperprior cases: both
+trained models at 1024x1024 through ``ShardedHyperCodec`` (B and D once an
+encode, C and E once a decode on every rank, no plain run, no conv kernel,
+cross-decoding with the single-device codec exact both ways, the symbols
+equal off rounding ties, x_hat within 1e-4, the corrupt container raised,
+no byte staged).  Prints every card's name and power limit and each rank
+count's encode and decode ms (rank 0's host clock, median of 5).  Exits
+non-zero on any failure, or with too few cards.
 """
 
 from __future__ import annotations
@@ -53,9 +58,16 @@ def main() -> int:
     with cs.phase("int8 main path at 768x512 on card 0"):
         _, golden = cs.main_path(args.seed, args.batch,
                                  torch.device("cuda", 0), smi)
-    with cs.phase(f"sharded int8 codec over NCCL on {RANKS} ranks"):
-        cs.sharded_path(args.seed, args.batch, golden, smi, backend="nccl",
-                        sizes=RANKS)
+    from simple_image_compression_network_tpu_torch.codec import hyper_codec
+    dev = torch.device("cuda", 0)
+    codecs = {"scale": hyper_codec.HyperCodec.from_checkpoint(
+                  cs.HYPER_CKPT, device=dev),
+              "meanscale": hyper_codec.MeanScaleCodec.from_checkpoint(
+                  cs.MEANSCALE_CKPT, device=dev)}
+    with cs.phase(f"sharded int8 and hyperprior codecs over NCCL on "
+                  f"{RANKS} ranks"):
+        cs.sharded_path(args.seed, args.batch, golden, codecs, smi,
+                        backend="nccl", sizes=RANKS)
     cs.log("sharded over NCCL: every gate passed")
     return 0
 

@@ -120,6 +120,38 @@ def _patch_escapes(vals: torch.Tensor, raws: Sequence[bytes],
     return torch.from_numpy(out.astype(np.int32)).to(vals.device)
 
 
+def pack_dev(geometry: Tuple[int, ...], z_streams: Sequence[bytes],
+             y_streams: Sequence[bytes], z: Optional[np.ndarray] = None,
+             y: Optional[np.ndarray] = None) -> bytes:
+    """One image's ``CODEC_HYPERPRIOR_DEV`` container: the header (X, Y,
+    zx, zy, zc, yx, yy, yc), its streams, and the raw side sections of the
+    values of ``z`` and ``y`` outside the alphabets (empty without them)."""
+    return container.pack(container.CODEC_HYPERPRIOR_DEV, [
+        struct.pack("<HHHHHHHH", *geometry), _pack_streams(z_streams),
+        _pack_streams(y_streams),
+        escape.pack_raw(np.zeros(0) if z is None else z, _Z_MAX),
+        escape.pack_raw(np.zeros(0) if y is None else y, _Y_MAX_DEV)])
+
+
+def parse_dev(blobs: Sequence[bytes]) -> List[Tuple]:
+    """``CODEC_HYPERPRIOR_DEV`` containers of one geometry -> per container
+    (header (X, Y, zx, zy, zc, yx, yy, yc), z streams, y streams, z raw
+    section, y raw section).  Raises ValueError for another container or
+    mixed geometries."""
+    metas = []
+    for data in blobs:
+        cid, sections = container.unpack(data)
+        if cid != container.CODEC_HYPERPRIOR_DEV or len(sections) != 5:
+            raise ValueError("not a device-format hyperprior container")
+        hdr, z_pay, y_pay, z_raw, y_raw = sections
+        metas.append((struct.unpack("<HHHHHHHH", hdr),
+                      _unpack_streams(z_pay), _unpack_streams(y_pay),
+                      z_raw, y_raw))
+    if any(m[0] != metas[0][0] for m in metas):
+        raise ValueError("mixed geometries in one batch")
+    return metas
+
+
 def _image_by_image(fn: Callable, z_hat: torch.Tensor) -> list:
     """fn (h_s) on each image of z_hat alone.  Both ends must derive
     bitwise-equal scales (and means) from an image's z_hat, whatever batch
@@ -307,19 +339,12 @@ class HyperCodec:
         z_np = z.cpu().numpy() if z_esc_np.any() else None
         y_np = y.cpu().numpy() if y_esc_np.any() else None
 
-        header = struct.pack("<HHHHHHHH", ix, iy, zx, zy, zc, yx, yy, yc)
-        out = []
-        for i in range(b):
-            z_raw = escape.pack_raw(
-                z_np[i] if z_np is not None else np.zeros(0), _Z_MAX)
-            y_raw = escape.pack_raw(
-                y_np[i] if y_np is not None else np.zeros(0), _Y_MAX_DEV)
-            out.append(container.pack(container.CODEC_HYPERPRIOR_DEV, [
-                header,
-                _pack_streams(z_chunks[i * s_z: (i + 1) * s_z]),
-                _pack_streams(y_chunks[i * s_y: (i + 1) * s_y]),
-                z_raw, y_raw]))
-        return out
+        geometry = (ix, iy, zx, zy, zc, yx, yy, yc)
+        return [pack_dev(
+            geometry, z_chunks[i * s_z: (i + 1) * s_z],
+            y_chunks[i * s_y: (i + 1) * s_y],
+            z_np[i] if z_np is not None else None,
+            y_np[i] if y_np is not None else None) for i in range(b)]
 
     # --- decode ---------------------------------------------------------
     def decompress_batch(self, blobs: Sequence[bytes], return_z: bool = False
@@ -340,17 +365,7 @@ class HyperCodec:
         validity flags to pinned host memory, with an event after it.  No
         wait on the device, except to patch escapes into a batch that
         carries raw values."""
-        metas = []
-        for data in blobs:
-            cid, sections = container.unpack(data)
-            if cid != container.CODEC_HYPERPRIOR_DEV or len(sections) != 5:
-                raise ValueError("not a device-format hyperprior container")
-            hdr, z_pay, y_pay, z_raw, y_raw = sections
-            metas.append((struct.unpack("<HHHHHHHH", hdr),
-                          _unpack_streams(z_pay), _unpack_streams(y_pay),
-                          z_raw, y_raw))
-        if any(m[0] != metas[0][0] for m in metas):
-            raise ValueError("mixed geometries in one batch")
+        metas = parse_dev(blobs)
         (_, _, zx, zy, zc, yx, yy, yc) = metas[0][0]
         b = len(blobs)
         s_z, nl_z, t_z = _plan_lanes(zx * zy, zc)

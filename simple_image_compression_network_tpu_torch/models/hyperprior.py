@@ -50,10 +50,21 @@ class _Conv(nn.Conv2d):
     bf16 input and weight rounded to bf16, then the bias added in bf16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.padding)
+
+    def conv(self, x: torch.Tensor, padding) -> torch.Tensor:
+        """The layer with ``padding`` (rows, columns) in place of its own
+        (a tile that carries its halo rows takes 0 on X)."""
         if x.dtype == torch.float32:
-            return self._conv_forward(x, self.weight, self.bias)
-        return _add_bias(self._conv_forward(x, self.weight.to(x.dtype), None),
-                         self.bias)
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding)
+        return _add_bias(F.conv2d(x, self.weight.to(x.dtype), None,
+                                  self.stride, padding), self.bias)
+
+
+def _whole(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A conv layer on the whole image: the transforms' default ``conv``
+    (``parallel/hyper_sharded.py`` passes each layer on an X tile)."""
+    return layer(x)
 
 
 def _conv(cin: int, cout: int, k: int = 5, s: int = 2) -> _Conv:
@@ -89,11 +100,11 @@ class AnalysisTransform(nn.Module):
             if i < 3:
                 setattr(self, f"GDN_{i}", GDN(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv=_whole) -> torch.Tensor:
         x = x.to(self.dtype)
         for i in range(3):
-            x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv_{i}")(x))
-        return self.Conv_3(x).float()
+            x = getattr(self, f"GDN_{i}")(conv(getattr(self, f"Conv_{i}"), x))
+        return conv(self.Conv_3, x).float()
 
 
 class SynthesisTransform(nn.Module):
@@ -108,12 +119,12 @@ class SynthesisTransform(nn.Module):
             if i < 3:
                 setattr(self, f"GDN_{i}", GDN(cout, inverse=True))
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, y: torch.Tensor, conv=_whole) -> torch.Tensor:
         y = y.to(self.dtype)
         for i in range(3):
             y = getattr(self, f"GDN_{i}")(
-                getattr(self, f"ConvTranspose_{i}")(y))
-        return self.ConvTranspose_3(y).float()
+                conv(getattr(self, f"ConvTranspose_{i}"), y))
+        return conv(self.ConvTranspose_3, y).float()
 
 
 class HyperAnalysis(nn.Module):
@@ -128,10 +139,10 @@ class HyperAnalysis(nn.Module):
         self.Conv_1 = _conv(n, n)
         self.Conv_2 = _conv(n, n)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.Conv_0(torch.abs(y).to(self.dtype)))
-        h = F.relu(self.Conv_1(h))
-        return self.Conv_2(h).float()
+    def forward(self, y: torch.Tensor, conv=_whole) -> torch.Tensor:
+        h = F.relu(conv(self.Conv_0, torch.abs(y).to(self.dtype)))
+        h = F.relu(conv(self.Conv_1, h))
+        return conv(self.Conv_2, h).float()
 
 
 class HyperSynthesis(nn.Module):
@@ -242,21 +253,23 @@ class _Hyperprior(nn.Module):
         return _nchw(x.to(device=self.device, dtype=torch.float32))
 
     @torch.no_grad()
-    def analysis_arrays(self, x: torch.Tensor
+    def analysis_arrays(self, x: torch.Tensor, conv=_whole
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, X, Y, 3) in [0, 1] -> (unrounded y (B, X/16, Y/16, M),
-        rounded z_hat (B, X/64, Y/64, N)), NHWC float32."""
+        rounded z_hat (B, X/64, Y/64, N)), NHWC float32.  ``conv(layer,
+        h)`` runs each conv layer (``_whole``: on the whole image)."""
         with _exact_float():
-            y = self.g_a(self._in(x))
-            z_hat = torch.round(self.h_a(y))
+            y = self.g_a(self._in(x), conv)
+            z_hat = torch.round(self.h_a(y, conv))
         return _nhwc(y), _nhwc(z_hat)
 
     @torch.no_grad()
-    def decode_arrays(self, y_hat: torch.Tensor) -> torch.Tensor:
+    def decode_arrays(self, y_hat: torch.Tensor, conv=_whole
+                      ) -> torch.Tensor:
         """y_hat (B, yx, yy, M) -> x_hat (B, 16 yx, 16 yy, 3), NHWC
-        float32."""
+        float32; ``conv`` as in ``analysis_arrays``."""
         with _exact_float():
-            return _nhwc(self.g_s(self._in(y_hat)))
+            return _nhwc(self.g_s(self._in(y_hat), conv))
 
 
 class ScaleHyperprior(_Hyperprior):

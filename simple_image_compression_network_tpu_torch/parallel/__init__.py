@@ -1,3 +1,4 @@
-"""Spatially sharded int8 codec on ``torch.distributed`` ranks: rank meshes
+"""Spatially sharded codecs on ``torch.distributed`` ranks: rank meshes
 (``mesh``), the process runtime (``distributed``), halo-exchanged tiles
-(``spatial``) and each rank's entropy stage (``entropy_sharded``)."""
+(``spatial``), each rank's int8 entropy stage (``entropy_sharded``) and the
+sharded hyperprior codec (``hyper_sharded``)."""

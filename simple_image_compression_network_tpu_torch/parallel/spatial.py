@@ -38,7 +38,7 @@ card, each message is staged through pinned host memory, counted in
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -81,27 +81,32 @@ def _concat(h: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       hi.to(h.device, non_blocking=True)], dim)
 
 
-def halo_exchange(h: torch.Tensor, halo: int, mesh: Mesh, axis: str,
-                  dim: int) -> torch.Tensor:
-    """Concatenate ``halo`` boundary slices from both mesh neighbours along
-    ``axis`` onto tensor dim ``dim`` (zeros past the global ends).  With
-    one rank on the axis this is a zero pad."""
-    zeros = _zero_border(h, halo, dim)
+def halo_exchange(h: torch.Tensor, halo: Union[int, Tuple[int, int]],
+                  mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """Concatenate boundary slices from both mesh neighbours along
+    ``axis`` onto tensor dim ``dim`` (zeros past the global ends):
+    ``halo`` slices on each side, or a (before, after) pair.  With one
+    rank on the axis this is a zero pad."""
+    before, after = (halo, halo) if isinstance(halo, int) else halo
     lo_rank, hi_rank = mesh.neighbours(axis)
-    ops, got = [], [zeros, zeros]
-    for side, (peer, start) in enumerate(((lo_rank, 0),
-                                          (hi_rank, h.shape[dim] - halo))):
+    ops, got, recv = [], [_zero_border(h, before, dim),
+                          _zero_border(h, after, dim)], []
+    # the rank below takes this tile's first ``after`` slices, the rank
+    # above its last ``before``
+    for side, (peer, start, n) in enumerate((
+            (lo_rank, 0, after), (hi_rank, h.shape[dim] - before, before))):
         if peer is None:
             continue
-        got[side] = _inbound(zeros, mesh)
+        got[side] = _inbound(got[side], mesh)
+        recv.append(got[side])
         ops += [dist.P2POp(dist.isend,
-                           _outbound(h.narrow(dim, start, halo), mesh), peer),
+                           _outbound(h.narrow(dim, start, n), mesh), peer),
                 dist.P2POp(dist.irecv, got[side], peer)]
     for work in (dist.batch_isend_irecv(ops) if ops else ()):
         work.wait()
     if mesh.staged:
         halo_exchange.staged_bytes += sum(
-            g.numel() * g.element_size() for g in got if g is not zeros)
+            g.numel() * g.element_size() for g in recv)
     return _concat(h, got[0], got[1], dim)
 
 

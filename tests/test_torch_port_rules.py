@@ -116,7 +116,7 @@ def test_new_modules_fall_under_the_import_probe():
                 "ops.nn", "ops.tmr", "utils.native_golden", "utils.checks",
                 "utils.dump", "utils.profiling", "utils.cache",
                 "parallel.mesh", "parallel.distributed", "parallel.spatial",
-                "parallel.entropy_sharded"):
+                "parallel.entropy_sharded", "parallel.hyper_sharded"):
         assert f"{port.__name__}.{mod}" in names
 
 
