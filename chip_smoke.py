@@ -63,6 +63,19 @@ paths at full width on B random-seeded 768x512 images:
   synthetic rows: the int8 and the four wavelet codecs' bpp and PSNR equal
   to the JAX package's digits (``JAX_EVAL``), the float codecs' reported
   beside their rows;
+* float RD training (``train.py``, ``train_loop.py``) at TrainConfig's
+  defaults (N = 128, M = 192, crop 256, B = 8): one clip+Adam step on the
+  card from the trained scale checkpoint against the same step on the
+  CPU (loss, every gradient leaf, every parameter's change, within
+  stated tolerances); ``train_loop.main`` for the three models from
+  init (the scale model 40 steps in blocks of 20 with checkpoints, then
+  resumed to 60; the others 10), every loss finite, ``restore`` equal to
+  the saved parameters; each model's block of 20 steps with no host sync
+  inside it (sync debug mode "error"), its steps/s, ms a step and peak
+  memory, and the scale model's step by stage; ``eval_codec --ckpt`` on
+  the training checkpoint, whose parameters then drive ``hyper_path``
+  (kernels B, D, C, E); ``train_loop --dp 2`` over two gloo ranks on the
+  card, their parameters bitwise equal;
 * the spatially sharded int8 codec (``parallel/``) on 1, 2 and 4 ranks,
   processes started by ``spawn_ranks`` that share the card over gloo:
   ``ShardedIntCodec`` with the main path's images, weights and tables,
@@ -119,6 +132,7 @@ import io
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -128,10 +142,11 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WATCHDOG_S = 600          # a hang ends as a traceback and a non-zero exit
+WATCHDOG_S = 900          # a hang ends as a traceback and a non-zero exit
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (data sheet)
 BOOST_HZ = 1.98e9         # H100 SXM boost clock (data sheet)
+FP32_FLOPS = 67e12        # H100 SXM float32, no tensor cores (data sheet)
 # The least dependent chain of one rANS encode step, the bound of kernels
 # B, D and H.  freq is known a group ahead, so everything made from it alone
 # is off the chain: the renorm threshold (freq << 16) - 1, 2^16 - freq, and
@@ -1816,10 +1831,12 @@ def time_new_shapes(rng, batch: int, dev, errs: dict) -> dict:
     return out
 
 
-def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
+def hyper_path(seed: int, batch: int, dev, card: str, codec,
+               tag: str = "hyper") -> dict:
     """The scale-hyperprior codec's compress_batch then decompress_batch at
-    768x512 with the trained checkpoint: y_hat and z_hat must equal the
-    encoder's integers.  Returns the launch counts, read right after."""
+    768x512 (with the trained checkpoint, or ``tag``'s parameters): y_hat
+    and z_hat must equal the encoder's integers.  Returns the launch
+    counts, read right after."""
     x = torch.from_numpy(make_images(seed + 1, batch)).to(dev)
     x = x.to(torch.float32) / 255.0
 
@@ -1835,21 +1852,21 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
     x_hat, y_hat, z_hat = codec.decompress_batch(blobs, return_z=True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counts = read_counts("hyper", ("rans_encode", "rans_decode",
-                                   "rans_encode_ctx", "rans_decode_ctx"))
+    counts = read_counts(tag, ("rans_encode", "rans_decode",
+                               "rans_encode_ctx", "rans_decode_ctx"))
     mem = torch.cuda.max_memory_allocated()
 
     y, z, _ = codec.encode_parts(x)
-    require_equal("hyper y_hat == round(y)", y_hat, y)
-    require_equal("hyper z_hat == round(h_a(y))", z_hat, z)
+    require_equal(f"{tag} y_hat == round(y)", y_hat, y)
+    require_equal(f"{tag} z_hat == round(h_a(y))", z_hat, z)
     if x_hat.shape != (batch, H, W, 3) or not bool(
             torch.isfinite(x_hat).all()):
-        raise AssertionError(f"hyper x_hat: shape {tuple(x_hat.shape)} "
+        raise AssertionError(f"{tag} x_hat: shape {tuple(x_hat.shape)} "
                              f"or non-finite values")
     try:
         codec.decompress_batch(blobs[:-1] + [corrupt_y(blobs[-1])])
     except ValueError as e:
-        log(f"corrupt hyper container rejected: {e}")
+        log(f"corrupt {tag} container rejected: {e}")
     else:
         raise AssertionError("a corrupt hyper container decoded without "
                              "error")
@@ -1862,17 +1879,17 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec) -> dict:
             _, y1 = codec.decompress_batch([blob])
             same += int(torch.equal(y1[0], y_hat[i]))
         except ValueError as e:
-            log(f"hyper image {i} decoded alone: {e}")
-    log(f"hyper: {same} of {batch} containers decoded alone give the batch "
+            log(f"{tag} image {i} decoded alone: {e}")
+    log(f"{tag}: {same} of {batch} containers decoded alone give the batch "
         f"decode's y_hat")
 
     n_bytes = sum(len(b) for b in blobs)
     mse = torch.mean((x_hat.clamp(0, 1) - x) ** 2).item()
     mp = batch * H * W / 1e6
-    log(f"hyper path [{card}]: B={batch} 768x512, {n_bytes} container "
+    log(f"{tag} path [{card}]: B={batch} 768x512, {n_bytes} container "
         f"bytes, {8 * n_bytes / (batch * H * W)} bpp, PSNR "
         f"{10 * np.log10(1.0 / mse)} dB")
-    log(f"hyper path [{card}]: encode {(t1 - t0) * 1e3} ms "
+    log(f"{tag} path [{card}]: encode {(t1 - t0) * 1e3} ms "
         f"({mp / (t1 - t0)} MP/s), decode {(t2 - t1) * 1e3} ms "
         f"({mp / (t2 - t1)} MP/s), peak device memory {mem} bytes; "
         f"y_hat == round(y), z_hat == round(z)")
@@ -2099,6 +2116,330 @@ def eval_path(card: str) -> dict:
                 f"{bpp}, PSNR {psnr} dB; difference bpp {got[0] - bpp}, "
                 f"PSNR {got[1] - psnr} dB")
     return counts
+
+
+# The training phase: the float RD trainer (train.py, train_loop.py) at
+# TrainConfig's defaults, N = 128, M = 192, crop 256, B = 8.
+TRAIN_STEPS = {"hyperprior": 40, "meanscale": 10, "factorized": 10}
+TRAIN_BLOCK = 20        # steps a block (--log-every) and a checkpoint
+TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
+# one step on the card against the port's CPU step (tests/test_torch_train.py
+# holds the CPU step against the JAX package at the same tolerances)
+STEP_LOSS_RTOL = 1e-5   # loss, relative
+STEP_GRAD_TOL = 1e-3    # each leaf's max |diff| over its max |g|
+STEP_TOL, STEP_MAX = 1e-2, 2.0   # the step's change, times lr, where
+#                                  |g| >= 1e-3 * (leaf max) / everywhere
+
+
+def _train_step(cfg, state: dict, batch, noise: dict, dev,
+                halves: bool = False) -> tuple:
+    """One clip+Adam step from ``state`` on ``dev``: (loss, gradients,
+    each parameter's change), on the CPU.  ``make_train_step``, or with
+    ``halves`` the same step with its gradient summed over the batch's
+    images one at a time (the same function, another summation order)."""
+    from simple_image_compression_network_tpu_torch import train
+    model = train.build_model(cfg, dev)
+    model.load_state_dict(state)
+    params = dict(model.named_parameters())
+    opt = train.build_optimizer(cfg).init(params)
+    grads: list = []
+    if halves:
+        losses = []
+        with train.full_float32():
+            for i in range(len(batch)):
+                loss = train.rd_loss(model, batch[i:i + 1].to(dev), {
+                    k: v[i:i + 1].to(dev) for k, v in noise.items()},
+                    cfg.rd_lambda)[0]
+                g = torch.autograd.grad(loss, list(params.values()))
+                grads = list(g) if not grads else [
+                    a + b for a, b in zip(grads, g)]
+                losses.append(float(loss.detach()))
+        grads = [g / len(batch) for g in grads]
+        train.build_optimizer(cfg).update(params, grads, opt)
+        loss = float(np.mean(losses))
+    else:
+        def keep(g, m):
+            grads.extend(g)
+            return g, m
+        loss = float(train.make_train_step(cfg, model, grad_mean=keep)(
+            opt, batch.to(dev), {k: v.to(dev) for k, v in noise.items()}
+        )["loss"])
+    return (loss, {k: g.detach().cpu() for k, g in zip(params, grads)},
+            {k: v.detach().cpu() - state[k]
+             for k, v in model.state_dict().items()})
+
+
+def _step_ratios(a: tuple, b: tuple, lr: float) -> tuple:
+    """a against b, each as a ratio to its tolerance: (loss, worst
+    gradient leaf, the step where b's |g| is large, the step anywhere,
+    the worst leaf's name)."""
+    loss_r = abs(a[0] - b[0]) / abs(b[0]) / STEP_LOSS_RTOL
+    grad = {k: float((a[1][k] - g).abs().max() / g.abs().max())
+            / STEP_GRAD_TOL for k, g in b[1].items()}
+    step_r = all_r = 0.0
+    for k, d in b[2].items():
+        g = b[1][k].abs()
+        diff = (a[2][k] - d).abs() / lr
+        big = g >= 1e-3 * g.max()
+        if big.any():
+            step_r = max(step_r, float(diff[big].max()) / STEP_TOL)
+        all_r = max(all_r, float(diff.max()) / STEP_MAX)
+    worst = max(grad, key=grad.get)
+    return loss_r, grad[worst], step_r, all_r, worst
+
+
+def train_step_check(seed: int, dev) -> None:
+    """One clip+Adam step at full width (B = 2, crop 256) on the card
+    against the same step on the CPU, with one batch of
+    ``training_bank(seed)`` and one draw of noise, from two starts:
+
+    * the seeded flax init (``train.init_state``): the loss, every
+      gradient leaf and every parameter's change within the tolerances
+      above, the CPU tests' (tests/test_torch_train.py, at n = 16, m = 24,
+      against the JAX package);
+    * the trained scale checkpoint (what users fine-tune): the loss and
+      the step anywhere within their tolerances.  Near a trained point
+      the rate's gradient in h_a and h_s is float32 residue (tail
+      probabilities at their 1e-9 floor, sums that cancel): no two
+      implementations need agree there to 1e-3 of a leaf's max.  So the
+      gradients and the step where |g| is large are reported, not gated,
+      beside the CPU's own spread: the same step with its gradient
+      summed image by image."""
+    from simple_image_compression_network_tpu_torch import train
+    from simple_image_compression_network_tpu_torch.utils import data
+    from simple_image_compression_network_tpu_torch.utils import weights_io
+    cfg = train.TrainConfig(batch=2)
+    batch = torch.from_numpy(data.training_bank(
+        cfg.batch, cfg.crop, cfg.crop, seed=seed)).to(torch.float32) / 255.0
+    model, _ = train.init_state(cfg, seed, "cpu")
+    noise = model.noise_like(batch.shape, torch.Generator().manual_seed(seed))
+    starts = {"seeded init": {k: v.detach().clone() for k, v in
+                              model.state_dict().items()},
+              os.path.basename(HYPER_CKPT): weights_io.hyper_params_from_jax(
+                  weights_io.load_hyper_checkpoint(HYPER_CKPT))}
+    cpu = torch.device("cpu")
+    for name, state in starts.items():
+        t0 = time.perf_counter()
+        on_card = _train_step(cfg, state, batch, noise, dev)
+        t1 = time.perf_counter()
+        on_cpu = _train_step(cfg, state, batch, noise, cpu)
+        t2 = time.perf_counter()
+        r = _step_ratios(on_card, on_cpu, cfg.lr)
+        line = (f"train step from {name}, card against CPU (B=2 crop 256, "
+                f"N=128 M=192): loss {on_card[0]} / {on_cpu[0]}; ratios to "
+                f"the tolerances: loss {r[0]:.4f}, worst gradient leaf "
+                f"{r[1]:.4f} ({r[4]}), step where |g| is large {r[2]:.4f}, "
+                f"step anywhere {r[3]:.4f}; {t1 - t0:.3f} s on the card "
+                f"(cuDNN's choices included), {t2 - t1:.3f} s on the CPU")
+        limit = (1.0, 1.0, 1.0, 1.0)
+        if name != "seeded init":
+            own = _step_ratios(_train_step(cfg, state, batch, noise, cpu,
+                                           halves=True), on_cpu, cfg.lr)
+            line += (f"; the CPU's own spread (image by image against the "
+                     f"batch): loss {own[0]:.4f}, gradient leaf "
+                     f"{own[1]:.4f} ({own[4]}), step where |g| is large "
+                     f"{own[2]:.4f}, step anywhere {own[3]:.4f}")
+            limit = (1.0, float("inf"), float("inf"), 1.0)
+        log(line)
+        if any(x > lim for x, lim in zip(r[:4], limit)):
+            raise AssertionError(f"the card's train step from {name} differs"
+                                 f" from the CPU's beyond {limit}")
+
+
+def _losses(text: str) -> list:
+    return [float(v) for v in re.findall(r"  loss (\S+)  ", text)]
+
+
+def train_loop_path(seed: int, card: str) -> str:
+    """``train_loop.main`` for each model from init at TrainConfig's
+    defaults (blocks of 20, a checkpoint every 20), the scale model for 40
+    steps and resumed to 60, the others for 10.  Returns the scale model's
+    ckpt_40."""
+    from simple_image_compression_network_tpu_torch import train, train_loop
+    from simple_image_compression_network_tpu_torch.utils import train_ckpt
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    for kind, steps in TRAIN_STEPS.items():
+        d = os.path.join(TRAIN_DIR, kind)
+        argv = ["--model", kind, "--steps", str(steps), "--seed", str(seed),
+                "--log-every", str(min(TRAIN_BLOCK, steps)), "--ckpt-every",
+                str(TRAIN_BLOCK), "--ckpt-dir", d]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            params = train_loop.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        text = out.getvalue()
+        log(text.rstrip())
+        losses = _losses(text)
+        if (len(losses) != -(-steps // TRAIN_BLOCK)
+                or not np.isfinite(losses).all()):
+            raise AssertionError(f"train_loop {kind}: losses {losses}")
+        files = sorted(os.listdir(d))
+        want = sorted({f"ckpt_{s}.msgpack" for s in
+                       range(TRAIN_BLOCK, steps + 1, TRAIN_BLOCK)}
+                      | {f"ckpt_{steps}.msgpack"})
+        if files != want:
+            raise AssertionError(f"train_loop {kind}: wrote {files}")
+        log(f"train_loop {kind} [{card}]: {steps} steps from init in "
+            f"{dt:.3f} s (bank, build and cuDNN's first choices included), "
+            f"losses finite, wrote {files}")
+        if kind != "hyperprior":
+            continue
+        last = os.path.join(d, f"ckpt_{steps}.msgpack")
+        model, opt = train.init_state(train.TrainConfig(), 0, "cpu")
+        step, saved, _ = train_ckpt.restore(last, model.state_dict(), opt)
+        if step != steps or any(not torch.equal(saved[k], v.cpu())
+                                for k, v in params.items()):
+            raise AssertionError("restore of the saved checkpoint differs "
+                                 "from the parameters saved")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_loop.main(argv[:2] + ["--steps", str(steps + TRAIN_BLOCK)]
+                            + argv[4:])
+        text = out.getvalue()
+        log(text.rstrip())
+        if (f"resumed from {last} at step {steps}" not in text
+                or f"step {steps + TRAIN_BLOCK:6d}  loss" not in text
+                or not np.isfinite(_losses(text)).all()):
+            raise AssertionError("train_loop did not resume from "
+                                 f"{last} to step {steps + TRAIN_BLOCK}")
+        log(f"train_loop {kind}: restore == the saved parameters (bitwise);"
+            f" resumed from ckpt_{steps} at step {steps}, ended at "
+            f"{steps + TRAIN_BLOCK}")
+    return os.path.join(TRAIN_DIR, "hyperprior",
+                        f"ckpt_{TRAIN_STEPS['hyperprior']}.msgpack")
+
+
+def _timed(fn) -> float:
+    """Median host ms of 5 synchronized calls of ``fn``."""
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def train_block_path(seed: int, dev, card: str) -> None:
+    """Each model's block of 20 steps at TrainConfig's defaults after a
+    first block: no host sync inside it (``set_sync_debug_mode("error")``),
+    its steps/s, ms a step and peak device memory; and the scale model's
+    step by stage (forward, backward, clip+Adam)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from simple_image_compression_network_tpu_torch import train
+    from simple_image_compression_network_tpu_torch.utils import data
+    bank = torch.from_numpy(data.training_bank(48, 512, 512, seed=seed)).to(
+        dev)
+    for kind in TRAIN_STEPS:
+        cfg = train.TrainConfig(model=kind)
+        model, opt = train.init_state(cfg, seed, dev)
+        block = train.make_train_block(cfg, model)
+        block(opt, bank, seed, 0, TRAIN_BLOCK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = block(opt, bank, seed, TRAIN_BLOCK, TRAIN_BLOCK)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        m = {k: float(v) for k, v in m.items()}
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"train block {kind}: metrics {m}")
+        log(f"train block {kind} [{card}]: B={cfg.batch} crop {cfg.crop} "
+            f"N={cfg.n} M={cfg.m}, {TRAIN_BLOCK} steps after a first block:"
+            f" {TRAIN_BLOCK / dt} steps/s, {dt * 1e3 / TRAIN_BLOCK} ms a "
+            f"step (host clock to the synchronize; {(t1 - t0) * 1e3} ms to "
+            f"queue the block), peak device memory {peak} bytes; no host "
+            f"sync inside the block (sync debug mode error); mean loss "
+            f"{m['loss']}, bpp {m['bpp']}, PSNR {m['psnr']} dB")
+        if kind != "hyperprior":
+            continue
+        gen = train.step_generator(torch.Generator(device=dev), seed, 0)
+        batch = train.device_random_crops(bank, cfg.crop, cfg.batch, gen)
+        noise = model.noise_like(batch.shape, gen)
+        params = dict(model.named_parameters())
+        leaves = list(params.values())
+        tx = train.build_optimizer(cfg)
+        held = {}
+
+        def fwd():
+            with train.full_float32():
+                held["loss"] = train.rd_loss(model, batch, noise,
+                                             cfg.rd_lambda)[0]
+
+        def bwd():
+            fwd()
+            with train.full_float32():
+                held["grads"] = list(torch.autograd.grad(held["loss"],
+                                                         leaves))
+
+        def upd():
+            tx.update(params, held["grads"], opt)
+        f_ms = _timed(fwd)
+        fb_ms = _timed(bwd)
+        u_ms = _timed(upd)
+        with FlopCounterMode(display=False) as flops:
+            bwd()
+        bound_ms = flops.get_total_flops() / FP32_FLOPS * 1e3
+        log(f"train step by stage, {kind} [{card}] (median of 5, each "
+            f"synchronized): forward and loss {f_ms} ms, backward "
+            f"{fb_ms - f_ms} ms (forward + backward {fb_ms}), clip + Adam "
+            f"{u_ms} ms over {len(leaves)} tensors; the step's convolutions"
+            f" and products {flops.get_total_flops() / 1e9} GFLOP "
+            f"(FlopCounterMode), bound {bound_ms} ms at 67 TFLOP/s float32"
+            f" (data sheet): the block's step at "
+            f"{100 * bound_ms / (dt * 1e3 / TRAIN_BLOCK):.1f}% of it")
+
+
+def train_eval_path(ckpt: str, seed: int, batch: int, dev, card: str) -> dict:
+    """``eval_codec.main`` on the training checkpoint (serial format, on
+    the host), then its parameters served in the device format through
+    ``hyper_path`` (kernels B, D to encode, C, E to decode).  Returns that
+    path's launch counts."""
+    from simple_image_compression_network_tpu_torch import eval_codec
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = eval_codec.main(["--codec", "hyperprior", "--ckpt", ckpt,
+                               "--n-synthetic", "2"])
+    log(f"eval hyperprior --ckpt {os.path.basename(ckpt)} [{card}]: "
+        f"{out.getvalue().strip()}; every container decoded; bpp "
+        f"{res['bpp']}, PSNR {res['psnr']} dB")
+    read_exact("eval of the training checkpoint", _SERIAL)
+    codec = eval_codec._hyper_codec("hyperprior", ckpt, dev)
+    return hyper_path(seed, batch, dev, card, codec,
+                      tag="trained hyper")
+
+
+def train_dp_path(seed: int, card: str) -> None:
+    """``train_loop --dp 2``: two gloo ranks sharing the card, 2 steps at
+    B = 2 (one image a rank); ``main`` raises unless both ranks end with
+    bitwise-equal parameters."""
+    from simple_image_compression_network_tpu_torch import train_loop
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        params = train_loop.main(["--dp", "2", "--batch", "2", "--steps",
+                                  "2", "--log-every", "1", "--seed",
+                                  str(seed)])
+    dt = time.perf_counter() - t0
+    text = out.getvalue()
+    log(text.rstrip())
+    if not all(f"rank {r} of 2 (gloo)" in text for r in range(2)) or not all(
+            bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError("train_loop --dp 2 did not report both ranks")
+    log(f"train_loop --dp 2 [{card}]: two gloo ranks time-sliced on one "
+        f"card, 2 steps at B=2 crop 256: the ranks' parameters bitwise "
+        f"equal; {dt:.3f} s from spawn to results")
 
 
 # The sharded phase: ranks are processes sharing the one card over gloo
@@ -3393,6 +3734,14 @@ def main() -> int:
         host = host_coders_path(args.seed, args.batch, golden, codec, smi)
     with phase("eval_codec entry point, 4 synthetic 768x512 images"):
         evals = eval_path(smi)
+    with phase("float RD training at crop 256"):
+        train_step_check(args.seed, dev)
+        trained_ckpt = train_loop_path(args.seed, smi)
+        train_block_path(args.seed, dev, smi)
+        trained = train_eval_path(trained_ckpt, args.seed, args.batch, dev,
+                                  smi)
+        train_dp_path(args.seed, smi)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     with phase("sharded int8 codec at 768x512 and hyperprior codecs at "
                "1024x1024 on 1, 2 and 4 ranks"):
         sharded = sharded_path(args.seed, args.batch, golden,
@@ -3400,7 +3749,8 @@ def main() -> int:
     del golden
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
              "meanscale": meanscale, **bf16, "device chain": chain, **piped,
-             **wavelet, **host, **evals, **sharded}
+             **wavelet, **host, **evals, "trained hyper": trained,
+             **sharded}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

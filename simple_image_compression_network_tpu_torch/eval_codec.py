@@ -9,7 +9,10 @@ reconstruction decoded from its container):
   with the static tables ``latent_cdfs.npz`` (kernels A, B and C);
 * ``wavelet``: ``WaveletCodec`` under ``--profile``;
 * ``hyperprior`` / ``meanscale``: ``HyperCodec`` / ``MeanScaleCodec`` on a
-  trained ``--ckpt`` (``*.params.msgpack``), in the serial format.
+  trained ``--ckpt``, in the serial format: a released
+  ``*.params.msgpack``, or a training checkpoint (``ckpt_*.msgpack`` of
+  either package's ``train_loop``, at the training default N = 128,
+  M = 192) whose parameters ``utils/train_ckpt.restore`` takes.
 
 Usage:
     python -m simple_image_compression_network_tpu_torch.eval_codec \\
@@ -121,20 +124,28 @@ def eval_hyper_codec(images: List[np.ndarray], codec) -> Dict:
 
 
 def _hyper_codec(name: str, ckpt, device):
-    """The hyper codec of ``--codec name`` on a released checkpoint."""
+    """The hyper codec of ``--codec name`` on a released checkpoint or on
+    a training checkpoint's parameters (as the JAX package's
+    ``eval_codec``: restored into the templates of a fresh
+    ``train.init_state``)."""
+    from . import train
     from .codec.hyper_codec import HyperCodec, MeanScaleCodec
+    from .utils import train_ckpt
     if ckpt is None:
         raise ValueError(
             f"--codec {name} needs --ckpt: a trained *.params.msgpack "
-            f"(checkpoints/hp_scale_* or hp_meanscale_*); the port has no "
-            f"randomly initialised model to evaluate")
-    if not ckpt.endswith(".params.msgpack"):
-        raise NotImplementedError(
-            f"{ckpt}: training checkpoints (ckpt_*.msgpack) need the "
-            f"training slice (ROADMAP queue 1 item 6: utils/train_ckpt.py); "
-            f"pass a released *.params.msgpack")
+            f"(checkpoints/hp_scale_* or hp_meanscale_*) or a training "
+            f"checkpoint ckpt_*.msgpack; the port has no randomly "
+            f"initialised model to evaluate")
     cls = MeanScaleCodec if name == "meanscale" else HyperCodec
-    return cls.from_checkpoint(ckpt, device=device)
+    if ckpt.endswith(".params.msgpack"):
+        return cls.from_checkpoint(ckpt, device=device)
+    cfg = train.TrainConfig(model=name)
+    model, opt_state = train.init_state(cfg, device=device)
+    _, params, _ = train_ckpt.restore(ckpt, model.state_dict(), opt_state)
+    serving = cls.model_cls(cfg.n, cfg.m, device=device)
+    serving.load_state_dict(params)
+    return cls(serving)
 
 
 def main(argv=None) -> Dict:
@@ -143,8 +154,9 @@ def main(argv=None) -> Dict:
     ap.add_argument("--codec", default="int8",
                     choices=["int8", "hyperprior", "meanscale", "wavelet"])
     ap.add_argument("--ckpt", default=None,
-                    help="released checkpoint (*.params.msgpack) of the "
-                         "hyperprior or meanscale codec")
+                    help="checkpoint of the hyperprior or meanscale codec:"
+                         " released (*.params.msgpack) or from training "
+                         "(ckpt_*.msgpack)")
     ap.add_argument("--profile", default="haar422",
                     help="wavelet codec profile (codec/wavelet_codec.py)")
     ap.add_argument("--n-synthetic", type=int, default=4)

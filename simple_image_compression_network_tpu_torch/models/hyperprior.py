@@ -1,5 +1,6 @@
 """The (mean-)scale-hyperprior autoencoders (Balle 2018, Minnen 2018
-without the context model), forward only.
+without the context model) and the factorized-prior autoencoder (Balle
+2017).
 
 The port of the JAX package's ``models/hyperprior.py``: analysis g_a
 (4x 5x5/s2 conv, GDN), synthesis g_s (4x 5x5/s2 transposed conv, IGDN),
@@ -11,6 +12,16 @@ Modules run NCHW; the public methods of the two models take and give NHWC
 as the JAX package does.  Parameter names follow flax's (``g_a.Conv_0``,
 ``g_s.ConvTranspose_3``, ``h_s.Conv_0``, ``bottleneck.H0``) so
 ``utils/weights_io.hyper_params_from_jax`` maps a checkpoint one to one.
+
+Called as modules (``model(x, noise=...)``), the models give the JAX
+package's training quantities: an NHWC batch in [0, 1] in, a dict of x_hat,
+the quantized latents, the prior and the rates out, with uniform noise in
+place of rounding (training) or a straight-through round.  Parameters
+start as flax initialises them: lecun-normal kernels (a normal truncated at
+2 sigma, variance 1/fan_in), zero biases, GDN's identity-like gamma, the
+bottleneck's constant H and uniform b.  Models are built frozen;
+``train.build_model`` makes one trainable, and the serving methods run
+without gradients either way.
 
 These float convolutions ran outside Pallas in the JAX package, so here they
 are PyTorch's.  On the card they run with deterministic cuDNN algorithms and,
@@ -28,16 +39,37 @@ run in float32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..codec import entropy
 from ..codec.entropy import FactorizedEntropy
 from ..ops.gdn import GDN
 from ..utils import weights_io
 from ..utils.device import resolve_device
+
+
+_TRUNC_STD = 0.87962566103423978   # std of N(0, 1) truncated to [-2, 2]
+
+
+@torch.no_grad()
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]) -> None:
+    """flax's ``lecun_normal``: N(0, s^2) truncated to [-2s, 2s], s chosen
+    so the variance is 1/fan_in.  Drawn on the CPU from ``generator`` (or
+    the global one), so a seed gives the same values on any device; by
+    rejection, redrawing the values past 2 sigma (torch's inverse-CDF
+    sampler takes ~0.2 s a full-width layer on the CPU)."""
+    draw = torch.randn(w.numel(), generator=generator)
+    out = torch.nonzero(draw.abs() > 2.0).squeeze(1)
+    while out.numel():
+        again = torch.randn(out.numel(), generator=generator)
+        draw[out] = again
+        out = out[again.abs() > 2.0]
+    w.copy_(draw.reshape(w.shape) * ((1.0 / fan_in) ** 0.5 / _TRUNC_STD))
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -45,7 +77,19 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return y + bias.to(y.dtype)[:, None, None]
 
 
-class _Conv(nn.Conv2d):
+class _FlaxInit:
+    """flax's init of ``Conv`` and ``ConvTranspose``: a lecun-normal kernel
+    over a fan-in of k * k * in_features, a zero bias."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        k = self.kernel_size
+        _lecun_normal_(self.weight, self.in_channels * k[0] * k[1],
+                       generator)
+        nn.init.zeros_(self.bias)
+
+
+class _Conv(_FlaxInit, nn.Conv2d):
     """A conv in its input's dtype.  In bf16, as flax: the conv of the
     bf16 input and weight rounded to bf16, then the bias added in bf16."""
 
@@ -71,7 +115,7 @@ def _conv(cin: int, cout: int, k: int = 5, s: int = 2) -> _Conv:
     return _Conv(cin, cout, k, stride=s, padding=k // 2)
 
 
-class _Deconv(nn.ConvTranspose2d):
+class _Deconv(_FlaxInit, nn.ConvTranspose2d):
     """flax ``ConvTranspose(k=5, s=2, padding="SAME")``: the 2x-dilated
     input padded by (3, 2), output exactly 2x.  PyTorch's padding is
     symmetric, so pad by 3 (padding=1) and drop the last row and column.
@@ -200,15 +244,103 @@ def _exact_float():
                                       deterministic=True, allow_tf32=False)
 
 
-class _Hyperprior(nn.Module):
-    """What both models share: g_a, g_s, h_a, the bottleneck, and an h_s
-    of the subclass's ``hyper_synthesis``; inference methods only.
+def _ceil_half(s: int, times: int) -> int:
+    """A side after ``times`` stride-2 convs of pad k // 2."""
+    for _ in range(times):
+        s = -(-s // 2)
+    return s
+
+
+def _nhwc_view(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+class _Autoencoder(nn.Module):
+    """What every model shares: its device, flax's initialisation and the
+    training noise of its quantized latents (``latents``, in draw order)."""
+
+    latents = ("y",)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bottleneck.H0.device
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        """flax's initialisation of every layer, drawn on the CPU from
+        ``generator`` (or the global generator)."""
+        for mod in self.modules():
+            if isinstance(mod, (_FlaxInit, FactorizedEntropy)):
+                mod.reset_parameters(generator)
+            elif isinstance(mod, GDN):
+                mod.reset_parameters()
+
+    def latent_shapes(self, x_shape) -> Dict[str, Tuple[int, ...]]:
+        """NCHW shapes of the quantized latents of an NHWC input."""
+        b, h, w, _ = x_shape
+        shapes = {"y": (b, self.m, _ceil_half(h, 4), _ceil_half(w, 4))}
+        if "z" in self.latents:
+            shapes["z"] = (b, self.n, _ceil_half(h, 6), _ceil_half(w, 6))
+        return shapes
+
+    def noise_like(self, x_shape, generator: torch.Generator
+                   ) -> Dict[str, torch.Tensor]:
+        """U(-1/2, 1/2) for each latent of an NHWC input of ``x_shape``,
+        drawn in order from ``generator`` on the model's device."""
+        return {k: entropy.uniform_noise(s, generator, self.device)
+                for k, s in self.latent_shapes(x_shape).items()}
+
+    def _noise(self, x: torch.Tensor, noise, generator):
+        if noise is None and generator is not None:
+            noise = self.noise_like(x.shape, generator)
+        return noise
+
+    @staticmethod
+    def _quantize(v: torch.Tensor, noise, name: str) -> torch.Tensor:
+        if noise is None:
+            return entropy.quantize_ste(v)
+        return entropy.quantize_noise(v, noise[name])
+
+
+class FactorizedPrior(_Autoencoder):
+    """g_a/g_s + a factorized entropy bottleneck on y (Balle 2017 style);
+    a training model only (no codec serves it)."""
+
+    def __init__(self, n: int = 128, m: int = 192, device=None):
+        super().__init__()
+        self.n, self.m = n, m
+        self.g_a = AnalysisTransform(n, m)
+        self.g_s = SynthesisTransform(n, m)
+        self.bottleneck = FactorizedEntropy(m)
+        self.requires_grad_(False)
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x (B, X, Y, 3) NHWC in [0, 1] -> the JAX package's training
+        quantities (NHWC): y quantized by ``noise`` (or noise drawn from
+        ``generator``), else rounded straight through."""
+        noise = self._noise(x, noise, generator)
+        y_hat = self._quantize(self.g_a(_nchw(x)), noise, "y")
+        bits_y = self.bottleneck(_nhwc_view(y_hat))
+        x_hat = self.g_s(y_hat)
+        num_pixels = x.shape[0] * x.shape[1] * x.shape[2]   # B X Y (NHWC)
+        return {"x_hat": _nhwc_view(x_hat), "y_hat": _nhwc_view(y_hat),
+                "bits": bits_y, "bpp": bits_y / num_pixels}
+
+
+class _Hyperprior(_Autoencoder):
+    """What both hyperpriors share: g_a, g_s, h_a, the bottleneck, and an
+    h_s of the subclass's ``hyper_synthesis``.
 
     Built on ``device`` (default: the card; ``device="cpu"`` to run on the
     host), in ``dtype`` (float32, or bfloat16 for the serving fast path).
-    Inputs are moved to the module's device."""
+    Inputs of the serving methods are moved to the module's device."""
 
     hyper_synthesis = HyperSynthesis
+    latents = ("y", "z")
 
     def __init__(self, n: int = 128, m: int = 192, device=None,
                  dtype: torch.dtype = torch.float32):
@@ -245,9 +377,18 @@ class _Hyperprior(nn.Module):
         model.load_state_dict(state)
         return model
 
-    @property
-    def device(self) -> torch.device:
-        return self.bottleneck.H0.device
+    def _training_out(self, x: torch.Tensor, y_hat: torch.Tensor,
+                      z_hat: torch.Tensor, bits_y: torch.Tensor,
+                      **prior: torch.Tensor) -> Dict[str, torch.Tensor]:
+        bits_z = self.bottleneck(_nhwc_view(z_hat))
+        x_hat = self.g_s(y_hat)
+        num_pixels = x.shape[0] * x.shape[1] * x.shape[2]   # B X Y (NHWC)
+        bits = bits_y + bits_z
+        return {"x_hat": _nhwc_view(x_hat), "y_hat": _nhwc_view(y_hat),
+                "z_hat": _nhwc_view(z_hat),
+                **{k: _nhwc_view(v) for k, v in prior.items()},
+                "bits_y": bits_y, "bits_z": bits_z, "bits": bits,
+                "bpp": bits / num_pixels}
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         return _nchw(x.to(device=self.device, dtype=torch.float32))
@@ -275,6 +416,23 @@ class _Hyperprior(nn.Module):
 class ScaleHyperprior(_Hyperprior):
     """g_a/g_s + hyperprior entropy stage: h_s predicts the scales sigma."""
 
+    def forward(self, x: torch.Tensor,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x (B, X, Y, 3) NHWC in [0, 1] -> the JAX package's training
+        quantities (x_hat, y_hat, z_hat, sigma NHWC; bits_y, bits_z, bits,
+        bpp): y and z plus ``noise`` (or noise drawn from ``generator``),
+        else rounded straight through."""
+        noise = self._noise(x, noise, generator)
+        y = self.g_a(_nchw(x))
+        z = self.h_a(y)
+        y_hat = self._quantize(y, noise, "y")
+        z_hat = self._quantize(z, noise, "z")
+        sigma = self.h_s(z_hat)
+        bits_y = entropy.GaussianConditional.bits(y_hat, sigma)
+        return self._training_out(x, y_hat, z_hat, bits_y, sigma=sigma)
+
     @torch.no_grad()
     def scales_from_z(self, z_hat: torch.Tensor) -> torch.Tensor:
         """z_hat (B, zx, zy, N) -> sigma (B, 4 zx, 4 zy, M), NHWC."""
@@ -287,6 +445,24 @@ class MeanScaleHyperprior(_Hyperprior):
     codes round(y - mu), zero-mean symbols, adding mu back before g_s."""
 
     hyper_synthesis = HyperSynthesisMeanScale
+
+    def forward(self, x: torch.Tensor,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """As ``ScaleHyperprior.forward``, with mu: the noise is added to y
+        itself; without noise y is rounded about mu, round(y - mu) + mu."""
+        noise = self._noise(x, noise, generator)
+        y = self.g_a(_nchw(x))
+        z_hat = self._quantize(self.h_a(y), noise, "z")
+        mu, sigma = self.h_s(z_hat)
+        if noise is None:
+            y_hat = entropy.quantize_ste(y - mu) + mu
+        else:
+            y_hat = entropy.quantize_noise(y, noise["y"])
+        bits_y = entropy.GaussianConditional.bits(y_hat, sigma, mu)
+        return self._training_out(x, y_hat, z_hat, bits_y, mu=mu,
+                                  sigma=sigma)
 
     @torch.no_grad()
     def params_from_z(self, z_hat: torch.Tensor

@@ -1,4 +1,4 @@
-"""GDN / IGDN (generalized divisive normalization), forward only.
+"""GDN / IGDN (generalized divisive normalization).
 
 The port of the JAX package's ``ops/gdn.py``, on NCHW tensors:
 
@@ -6,8 +6,12 @@ The port of the JAX package's ``ops/gdn.py``, on NCHW tensors:
     y_c = x_c * sqrt(beta_c + sum_d gamma[d, c] * x_d^2)     (IGDN)
 
 beta and gamma are stored raw and reparameterized as the JAX package does,
-``max(v, sqrt(min + 2^-18))^2 - 2^-18``.  The channel mix is a 1x1
-convolution whose weight is gamma transposed.
+``lower_bound(v, sqrt(min + 2^-18))^2 - 2^-18``.  ``lower_bound`` is a max
+in value, and in its gradient JAX's straight-through bound: a gradient
+that would push a clipped value up passes.  A plain clamp would block it,
+and gamma's off-diagonal entries, which start at 0 below the bound, would
+never train.  The channel mix is a 1x1 convolution whose weight is gamma
+transposed.
 
 GDN runs in its input's dtype.  On a bf16 input (the serving fast path)
 it follows the JAX package's ``dtype`` branch: x^2 and gamma rounded to
@@ -26,9 +30,32 @@ from torch import nn
 _PEDESTAL = 2.0 ** -18
 
 
+class _LowerBound(torch.autograd.Function):
+    """max(x, bound); the gradient passes where x >= bound or where it
+    would push x up (g < 0 under descent), and is 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, bound: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp(x, min=bound)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        keep = (x >= ctx.bound) | (g < 0)
+        return torch.where(keep, g, torch.zeros_like(g)), None
+
+
+def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """JAX's ``lower_bound``: a max with a straight-through gradient
+    toward the feasible side."""
+    return _LowerBound.apply(x, bound)
+
+
 def reparam(v: torch.Tensor, minimum: float = 0.0) -> torch.Tensor:
     bound = (minimum + _PEDESTAL) ** 0.5
-    return torch.square(torch.clamp(v, min=bound)) - _PEDESTAL
+    return torch.square(lower_bound(v, bound)) - _PEDESTAL
 
 
 def _reparam_init(value: float) -> float:
@@ -43,9 +70,18 @@ class GDN(nn.Module):
         super().__init__()
         self.inverse = inverse
         self.beta_min = beta_min
-        self.beta = nn.Parameter(torch.full((channels,), _reparam_init(1.0)))
-        self.gamma = nn.Parameter(_reparam_init(gamma_init)
-                                  * torch.eye(channels))
+        self.gamma_init = gamma_init
+        self.beta = nn.Parameter(torch.empty(channels))
+        self.gamma = nn.Parameter(torch.empty(channels, channels))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The JAX package's init: beta 1 and gamma ``gamma_init`` times the
+        identity, both as raw (pre-reparameterization) values."""
+        self.beta.fill_(_reparam_init(1.0))
+        self.gamma.copy_(_reparam_init(self.gamma_init)
+                         * torch.eye(self.gamma.shape[0]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = reparam(self.beta, self.beta_min)

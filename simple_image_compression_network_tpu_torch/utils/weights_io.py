@@ -1,6 +1,8 @@
 """Checkpoint I/O for the port: the JAX package's ``.npz`` files, read with
 numpy, and its flax ``.msgpack`` hyperprior checkpoints, read with the
-port's own ``utils/msgpack_io.py``; both carried into torch tensors."""
+port's own ``utils/msgpack_io.py``; both carried into torch tensors, and
+the hyperprior parameters carried back into flax's tree
+(``hyper_params_to_jax``) for the training checkpoints."""
 
 from __future__ import annotations
 
@@ -74,3 +76,36 @@ def hyper_params_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
 
     walk(variables["params"], "")
     return out
+
+
+def _leaf_to_jax(module: str, name: str, t: torch.Tensor) -> np.ndarray:
+    """The inverse of ``_leaf_to_torch``: a port tensor -> the flax leaf."""
+    t = t.detach().cpu()
+    if name == "weight":
+        if "ConvTranspose" in module:       # undo permute(2, 3, 0, 1).flip
+            t = t.flip(2, 3).permute(2, 3, 0, 1)
+        else:                               # (out, in, kh, kw) -> HWIO
+            t = t.permute(2, 3, 1, 0)
+    return np.ascontiguousarray(t.numpy())
+
+
+def hyper_params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """A ``state_dict`` of the port's hyperprior modules (or a tree of the
+    same names and shapes: Adam's moments) -> flax variables
+    ``{"params": {...}}`` of numpy arrays, the inverse of
+    ``hyper_params_from_jax``.  Keys are sorted at every level, as JAX's
+    tree functions leave a flax tree."""
+    tree: dict = {}
+    for key, t in state.items():
+        *path, name = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node["kernel" if name == "weight" else name] = _leaf_to_jax(
+            ".".join(path), name, t)
+
+    def ordered(node):
+        return ({k: ordered(node[k]) for k in sorted(node)}
+                if isinstance(node, dict) else node)
+
+    return {"params": ordered(tree)}

@@ -72,9 +72,12 @@ def test_main_matches_jax(folder, capsys, argv, psnr_tol):
 
 
 def test_hyper_codecs_need_a_released_checkpoint():
+    """The hyper codecs need --ckpt; a training checkpoint is read as one
+    (utils/train_ckpt.py; served in tests/test_torch_train_ckpt.py), so a
+    missing one raises as a missing file, not as unported."""
     with pytest.raises(ValueError, match="--ckpt"):
         eval_codec.main(["--codec", "meanscale", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="ckpt_1000"):
         eval_codec.main(["--codec", "hyperprior", "--device", "cpu",
                          "--ckpt", "runs/hp01/ckpt_1000.msgpack"])
 

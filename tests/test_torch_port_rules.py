@@ -11,7 +11,8 @@ import sys
 import pytest
 import torch
 
-from simple_image_compression_network_tpu_torch import _build, eval_codec
+from simple_image_compression_network_tpu_torch import (
+    _build, eval_codec, train, train_loop)
 from simple_image_compression_network_tpu_torch.codec import hyper_codec, rans
 from simple_image_compression_network_tpu_torch.models import (
     codec_int, hyperprior)
@@ -102,6 +103,21 @@ def test_meanscale_and_eval_entry_points_raise_without_a_card(monkeypatch):
     assert hyper_codec.MeanScaleCodec(model).device == torch.device("cpu")
 
 
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """``train.build_model``, ``train.init_state`` and ``train_loop.main``
+    (one device and --dp) train on the card unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = train.TrainConfig(model="factorized", n=4, m=6)
+    for make in (lambda: train.build_model(cfg),
+                 lambda: train.init_state(cfg),
+                 lambda: train_loop.main(["--steps", "1"]),
+                 lambda: train_loop.main(["--steps", "1", "--dp", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    model, opt = train.init_state(cfg, device="cpu")
+    assert model.device == torch.device("cpu") and opt.count == 0
+
+
 def test_new_modules_fall_under_the_import_probe():
     """The probe walks every module of the package; the later slices'
     modules must be among them."""
@@ -116,7 +132,8 @@ def test_new_modules_fall_under_the_import_probe():
                 "ops.nn", "ops.tmr", "utils.native_golden", "utils.checks",
                 "utils.dump", "utils.profiling", "utils.cache",
                 "parallel.mesh", "parallel.distributed", "parallel.spatial",
-                "parallel.entropy_sharded", "parallel.hyper_sharded"):
+                "parallel.entropy_sharded", "parallel.hyper_sharded",
+                "train", "train_loop", "utils.train_ckpt"):
         assert f"{port.__name__}.{mod}" in names
 
 
