@@ -76,6 +76,20 @@ paths at full width on B random-seeded 768x512 images:
   the training checkpoint, whose parameters then drive ``hyper_path``
   (kernels B, D, C, E); ``train_loop --dp 2`` over two gloo ranks on the
   card, their parameters bitwise equal;
+* wrap-STE training of the integer net (``intnet.py``,
+  ``train_intnet.py``) at crop 256: per layer at B = 8 the float
+  accumulator exact and equal to the float64 golden accumulator, and
+  kernel A equal to relu(wrap(round(acc_f))); one wrap and one clip step
+  on the card against the CPU (x_hat bitwise; the loss, the net's
+  gradients and the step within the float trainer's tolerances, the
+  entropy model's gradients against float64); a block of each mode timed
+  with kernel A's launches gated (8 a wrap step); ``train_intnet.main``
+  from init and from haar422 with its structure frozen, launches gated;
+  the exported weights and CDFs through ``int_codec`` (kernels A, B, C)
+  equal to the float64 golden; ``train_loop --sp 2`` (two ranks, halos
+  carrying gradients back) against one process; the reference header
+  packed from ``reference_weights.npz`` and read back by
+  ``weights_io.load_reference_params``;
 * the spatially sharded int8 codec (``parallel/``) on 1, 2 and 4 ranks,
   processes started by ``spawn_ranks`` that share the card over gloo:
   ``ShardedIntCodec`` with the main path's images, weights and tables,
@@ -2442,6 +2456,630 @@ def train_dp_path(seed: int, card: str) -> None:
         f"equal; {dt:.3f} s from spawn to results")
 
 
+# The integer wrap-STE training phase (intnet.py, train_intnet.py) at the
+# JAX package's defaults: the reference net's widths, crop 256, B = 8.
+INTNET_DIR = os.path.join(ROOT, "build", "intnet_smoke")
+INTNET_CROP, INTNET_B = 256, 8      # IntNetTrainConfig's defaults
+INTNET_BLOCK = 10       # timed steps a block, after a first block of 2
+INTNET_STEPS = {"float": 4, "clip": 4, "wrap": 4}   # steps a phase
+INTNET_A = {"float": 0, "clip": 0, "wrap": 8}       # kernel A a step
+INTNET_CDF_A = 8 * 4    # the static CDFs: 8 images through 4 layers
+SP_STEPS = 2
+SP_CROP = 256
+
+
+def _intnet_net():
+    from simple_image_compression_network_tpu_torch.config import (
+        reference_net_for_input)
+    return reference_net_for_input(INTNET_CROP, INTNET_CROP)
+
+
+def _intnet_cfg(**kw):
+    from simple_image_compression_network_tpu_torch import intnet
+    return intnet.IntNetTrainConfig(crop=INTNET_CROP, batch=INTNET_B, **kw)
+
+
+def _intnet_batch(seed: int, b: int) -> torch.Tensor:
+    """(B, crop, crop, 3) float32 ints in [0, 255]: the bank's images."""
+    from simple_image_compression_network_tpu_torch.utils import data
+    return torch.from_numpy(data.training_bank(
+        b, INTNET_CROP, INTNET_CROP, seed=seed)).to(torch.float32)
+
+
+def intnet_layers_check(seed: int, dev) -> None:
+    """Per layer at B = 8, crop 256, the seeded init in wrap mode: the
+    float accumulator ``acc_f`` (cuDNN float32 without TF32, training's
+    flags) holds exact integers, equal to the float64 golden accumulator
+    plus the bias, and ``relu(wrap(round(acc_f)))`` equals kernel A's
+    output bitwise (the gradient mask and the value of ``intnet._layer``
+    come from these two)."""
+    from simple_image_compression_network_tpu_torch import intnet, train
+    from simple_image_compression_network_tpu_torch.ops import (
+        conv_fast, conv_int)
+    net = _intnet_net()
+    cfg = _intnet_cfg()
+    params = intnet.init_params(cfg, torch.Generator().manual_seed(seed),
+                                net, dev)
+    h = torch.floor(_intnet_batch(seed, cfg.batch).to(dev) / 2.0)
+    for i, layer in enumerate(net.layers):
+        wq = intnet.ste_round_clip(params[f"w{i}"], -8.0, 7.0)
+        bq = intnet.ste_round_clip(params[f"b{i}"], -128.0, 127.0)
+        with train.full_float32():
+            acc_f = intnet._acc_f(h, wq, layer.transposed) + bq
+        acc_b = torch.round(acc_f).to(torch.int64)
+        if not torch.equal(acc_b.to(torch.float32), acc_f):
+            raise AssertionError(f"intnet L{i}: acc_f holds non-integers")
+        xi = conv_int.to_wire_int8(h.to(torch.uint8))
+        wi, bi = wq.to(torch.int8), bq.to(torch.int8)
+        acc = (conv_int.deconv2d_int8_acc(xi, wi) if layer.transposed
+               else conv_int.conv2d_int8_acc(xi, wi))
+        require_equal(f"intnet L{i}: round(acc_f) == golden acc + b", acc_b,
+                      acc + bi.to(torch.int64))
+        form = (conv_fast.deconv2d_int8_d2s if layer.transposed
+                else conv_fast.conv2d_int8_s2d)
+        y = form(xi, wi, bi)
+        want = torch.clamp_min(conv_int.wrap_to_int8(acc_b), 0)
+        require_equal(f"intnet L{i}: kernel A == relu(wrap(round(acc_f)))",
+                      y, want)
+        wraps = int(((acc_b < -128) | (acc_b > 127)).sum())
+        log(f"intnet L{i} ({tuple(h.shape)} -> {tuple(y.shape)}): acc_f "
+            f"exact integers == the float64 golden accumulator + b; kernel "
+            f"A == relu(wrap(round(acc_f))) bitwise; {wraps} of "
+            f"{acc_b.numel()} accumulators outside the 8-bit window")
+        h = y.to(torch.float32)
+
+
+def _intnet_step(cfg, net, start: dict, batch: torch.Tensor, dev) -> tuple:
+    """One step of ``cfg``'s mode from ``start`` on ``dev``: (loss,
+    gradients, each parameter's change, x_hat), on the CPU."""
+    from simple_image_compression_network_tpu_torch import intnet, train
+    params = {k: v.to(dev).clone().requires_grad_(True)
+              for k, v in start.items()}
+    tx = intnet.build_optimizer(cfg)
+    with train.full_float32():
+        loss, _ = intnet.loss_fn(params, batch.to(dev), cfg, net)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+        x_hat = intnet.forward(params, torch.floor(batch.to(dev) / 2.0),
+                               net, mode=cfg.mode)[0].detach().cpu()
+    tx.update(params, grads, tx.init(params))
+    return (float(loss.detach()),
+            {k: g.detach().cpu() for k, g in zip(params, grads)},
+            {k: params[k].detach().cpu() - v for k, v in start.items()},
+            x_hat)
+
+
+def _ent_grads(ent: dict, z: torch.Tensor, n_pix: int, dtype, dev,
+               per_sample: bool = False) -> dict:
+    """The gradient of bits(z) / n_pix with respect to the entropy model's
+    leaves ``ent`` (names without ``intnet.ENT``), in ``dtype`` on
+    ``dev``, returned on the CPU.  With ``per_sample``, each latent
+    position's term of that sum instead, on a leading axis."""
+    from torch.func import functional_call, grad, vmap
+    from simple_image_compression_network_tpu_torch import intnet
+    mod = intnet._entropy(z.shape[-1], intnet.IntNetTrainConfig
+                          .ent_init_scale)
+    leaves = {k: v.to(dev, dtype) for k, v in ent.items()}
+    zz = z.to(dev, dtype)
+
+    def bpp(q, y):
+        return functional_call(mod, q, (y,)) / n_pix
+    if per_sample:
+        got = vmap(grad(bpp), in_dims=(None, 0))(
+            leaves, zz.reshape(-1, z.shape[-1]))
+    else:
+        got = grad(bpp)(leaves, zz)
+    return {k: v.cpu() for k, v in got.items()}
+
+
+def _ent_likelihood(ent: dict, z: torch.Tensor, dtype, dev
+                    ) -> torch.Tensor:
+    """The entropy model's likelihood of each latent symbol, in ``dtype``
+    on ``dev``, returned on the CPU."""
+    from simple_image_compression_network_tpu_torch import intnet
+    from simple_image_compression_network_tpu_torch.codec.entropy import (
+        FactorizedEntropy)
+    mod = FactorizedEntropy(z.shape[-1], init_scale=intnet.IntNetTrainConfig
+                            .ent_init_scale).to(dev, dtype)
+    mod.load_state_dict(ent)
+    with torch.no_grad():
+        return mod.likelihood(z.to(dev, dtype)).cpu()
+
+
+def _ent_grads64(cfg, net, start: dict, batch: torch.Tensor) -> dict:
+    """The entropy model's gradient of the loss in float64 on the CPU (the
+    loss reaches those leaves through the rate of z alone; z is the same
+    integers on both devices)."""
+    from simple_image_compression_network_tpu_torch import intnet
+    with torch.no_grad():
+        z = intnet.forward(start, torch.floor(batch / 2.0), net,
+                           mode=cfg.mode)[1]
+    ent = {k[len(intnet.ENT):]: v for k, v in start.items()
+           if k.startswith(intnet.ENT)}
+    n_pix = batch.shape[0] * batch.shape[1] * batch.shape[2]
+    return {intnet.ENT + k: g.float() for k, g in _ent_grads(
+        ent, z, n_pix, torch.float64, torch.device("cpu")).items()}
+
+
+def _leaf_ratios(a: dict, b: dict, tol: float) -> dict:
+    """Each leaf of ``b`` present: max |a - b| over b's max |g|, over
+    ``tol``."""
+    return {k: float((a[k] - g).abs().max() / g.abs().max()) / tol
+            for k, g in b.items() if g.abs().max() > 0}
+
+
+ENT_GRAD_TOL = 1e-2     # the entropy model's leaves against float64
+ENT_SEEDS = 8           # draws of init and batch in ent_grad_spread
+
+
+def matmul_grad_error(dev, same_sign: bool = False) -> tuple:
+    """The gradient of ``torch.matmul(h, x)`` with respect to h at the
+    entropy model's shapes (C = 192, h 3 x 3, x 3 x 512: the product its
+    H1 and H2 take their gradient through, a sum over 512 samples) in
+    float32 on ``dev`` and on the CPU: each one's max |error| against
+    float64 over the float64 result's max.  With ``same_sign``, x and the
+    output's gradient are |N(0, 1)|, so every term of the sums is
+    positive, as in the entropy model's sums over positions."""
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn((192, 3, 3), generator=g)
+    x = torch.randn((192, 3, 512), generator=g)
+    gy = torch.randn((192, 3, 512), generator=g)
+    if same_sign:
+        x, gy = x.abs(), gy.abs()
+    ref = torch.einsum("cin,cjn->cij", gy.double(), x.double())
+    out = []
+    for d in (dev, torch.device("cpu")):
+        hd = h.to(d).requires_grad_(True)
+        got = torch.autograd.grad(torch.sum(torch.matmul(hd, x.to(d))
+                                            * gy.to(d)), hd)[0]
+        out.append(float((got.cpu().double() - ref).abs().max()
+                         / ref.abs().max()))
+    return tuple(out)
+
+
+def intnet_step_check(seed: int, dev) -> None:
+    """One wrap step and one clip step at B = 2, crop 256 on the card
+    against the same step on the CPU (kernel A's plain version there),
+    from the seeded init: x_hat bitwise; the loss, the step where |g| is
+    large, the step anywhere (``STEP_*``) and every gradient leaf of the
+    net and its display (``STEP_GRAD_TOL`` of the leaf's max) within the
+    float trainer's tolerances (tests/test_torch_intnet.py holds the CPU
+    against the JAX package).  The entropy model's gradient sums over the
+    latent's samples with heavy cancellation in its H1 and H2: both
+    devices' float32 gradients are held against float64 instead, within
+    ``ENT_GRAD_TOL`` of the leaf's max (the CPU's own error printed
+    beside the card's)."""
+    from simple_image_compression_network_tpu_torch import intnet
+    net = _intnet_net()
+    start = intnet.init_params(_intnet_cfg(),
+                               torch.Generator().manual_seed(seed), net,
+                               "cpu")
+    batch = _intnet_batch(seed + 1, 2)
+    err = matmul_grad_error(dev)
+    pos = matmul_grad_error(dev, same_sign=True)
+    log(f"float32 gradient of matmul(h, x) with respect to h (192 x 3 x 3 "
+        f"by 3 x 512) against float64: card {err[0]:.3g}, CPU "
+        f"{err[1]:.3g} of the result's max; with terms of one sign card "
+        f"{pos[0]:.3g}, CPU {pos[1]:.3g} (TF32 for matmul: "
+        f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+        f"{torch.get_float32_matmul_precision()})")
+    for mode in ("wrap", "clip"):
+        cfg = intnet.IntNetTrainConfig(mode=mode, crop=INTNET_CROP,
+                                       batch=2)
+        t0 = time.perf_counter()
+        card = _intnet_step(cfg, net, start, batch, dev)
+        t1 = time.perf_counter()
+        cpu = _intnet_step(cfg, net, start, batch, torch.device("cpu"))
+        t2 = time.perf_counter()
+        require_identical(f"intnet {mode} x_hat, card == CPU", card[3],
+                          cpu[3])
+        r = _step_ratios(card[:3], cpu[:3], cfg.lr)
+        net_leaves = _leaf_ratios(card[1], {
+            k: g for k, g in cpu[1].items()
+            if not k.startswith(intnet.ENT)}, STEP_GRAD_TOL)
+        worst = max(net_leaves, key=net_leaves.get)
+        g64 = _ent_grads64(cfg, net, start, batch)
+        c64 = _leaf_ratios(card[1], g64, ENT_GRAD_TOL)
+        p64 = _leaf_ratios(cpu[1], g64, ENT_GRAD_TOL)
+        vs_cpu = _leaf_ratios(card[1], {k: cpu[1][k] for k in g64},
+                              STEP_GRAD_TOL)
+        log(f"intnet {mode} step from the seeded init, card against CPU "
+            f"(B=2 crop {INTNET_CROP}): x_hat bitwise equal; loss {card[0]} "
+            f"/ {cpu[0]}; ratios to the tolerances: loss {r[0]:.4f}, worst "
+            f"gradient leaf of the net {net_leaves[worst]:.4f} ({worst}), "
+            f"step where |g| is large {r[2]:.4f}, step anywhere "
+            f"{r[3]:.4f}; the entropy model's leaves against float64, card "
+            f"/ CPU: " + ", ".join(f"{k[len(intnet.ENT):]} {c64[k]:.4f} / "
+                                   f"{p64[k]:.4f}" for k in g64)
+            + "; the card's against the CPU's, to the net's tolerance: "
+            + ", ".join(f"{k[len(intnet.ENT):]} {v:.4f}"
+                        for k, v in vs_cpu.items())
+            + f"; {t1 - t0:.3f} s on the card, {t2 - t1:.3f} s on the CPU")
+        if max([r[0], r[2], r[3], net_leaves[worst]]
+               + list(c64.values()) + list(p64.values())) > 1.0:
+            raise AssertionError(f"the card's intnet {mode} step differs "
+                                 f"from the CPU's beyond the tolerances")
+
+
+def _ent_branch_grads(ent: dict, z: torch.Tensor, n_pix: int, dtype,
+                      dev) -> dict:
+    """The gradient of bits(z) / n_pix with respect to the entropy model's
+    leaves through each of its two CDF evaluations apart ("lo" at z - 1/2,
+    "hi" at z + 1/2; the gradient is their sum), in ``dtype`` on ``dev``,
+    returned on the CPU."""
+    from simple_image_compression_network_tpu_torch import intnet
+    from simple_image_compression_network_tpu_torch.codec.entropy import (
+        FactorizedEntropy)
+    mod = FactorizedEntropy(z.shape[-1], init_scale=intnet.IntNetTrainConfig
+                            .ent_init_scale).to(dev, dtype)
+    mod.load_state_dict(ent)
+    outs = []
+
+    def logits(x, f=mod._logits_cdf):
+        outs.append(f(x))
+        return outs[-1]
+    mod._logits_cdf = logits            # likelihood calls it at lo, then hi
+    bits = mod(z.to(dev, dtype)) / n_pix
+    names, leaves = zip(*mod.named_parameters())
+    res = {}
+    for tag, out, g in zip(("lo", "hi"), outs, torch.autograd.grad(
+            bits, outs, retain_graph=True)):
+        res[tag] = {k: v.cpu() for k, v in zip(names, torch.autograd.grad(
+            out, leaves, grad_outputs=g, retain_graph=True))}
+    return res
+
+
+def ent_grad_spread(seed: int, dev) -> None:
+    """The entropy model's float32 gradient against float64 over
+    ``ENT_SEEDS`` draws (seeded init, a B = 2 crop-256 batch, z from the
+    wrap and the clip forward on the card), on the card and on the CPU,
+    with its sources apart.  Per leaf, each relative to the float64
+    gradient's max: ``err``, the float32 gradient's max |error|;
+    ``terms``, the error of the float32 per-position terms summed in
+    float64 (the elementwise forward and backward without the sum over
+    positions); ``cancel``, the float64 terms' max sum of |term| (how far
+    the sum over positions cancels); ``sum``, the float32 gradient against
+    the same float32 terms summed in float64 (the error of the sums over
+    positions alone); ``p``, the float32 likelihood's max relative error
+    (a difference of two sigmoids).  The likelihood evaluates the CDF
+    twice (at z -/+ 1/2), and each evaluation's gradient is a sum over
+    positions of its own: ``kappa``, the float64 gradient through one
+    evaluation ("hi", ``_ent_branch_grads``) over the whole gradient, max
+    to max, says how far adding the two cancels, so how far it magnifies
+    the error of each evaluation's sum.  Every ``err`` must lie within
+    ``ENT_GRAD_TOL``."""
+    from simple_image_compression_network_tpu_torch import intnet
+    net = _intnet_net()
+    cpu = torch.device("cpu")
+    worst = {}
+    for s in range(seed, seed + ENT_SEEDS):
+        start = intnet.init_params(_intnet_cfg(),
+                                   torch.Generator().manual_seed(s), net,
+                                   "cpu")
+        batch = _intnet_batch(s + 1, 2)
+        ent = {k[len(intnet.ENT):]: v for k, v in start.items()
+               if k.startswith(intnet.ENT)}
+        n_pix = batch.shape[0] * batch.shape[1] * batch.shape[2]
+        for mode in ("wrap", "clip"):
+            with torch.no_grad():
+                z = intnet.forward({k: v.to(dev) for k, v in start.items()},
+                                   torch.floor(batch.to(dev) / 2.0), net,
+                                   mode=mode)[1].cpu()
+            g64 = _ent_grads(ent, z, n_pix, torch.float64, cpu)
+            t64 = _ent_grads(ent, z, n_pix, torch.float64, cpu,
+                             per_sample=True)
+            b64 = _ent_branch_grads(ent, z, n_pix, torch.float64, cpu)
+            cancel = {k: float(t64[k].abs().sum(0).max() / g.abs().max())
+                      for k, g in g64.items()}
+            kappa = {k: float(b64["hi"][k].abs().max() / g.abs().max())
+                     for k, g in g64.items()}
+            p64 = _ent_likelihood(ent, z, torch.float64, cpu)
+            parts = []
+            for name, d in (("card", dev), ("CPU", cpu)):
+                g32 = _ent_grads(ent, z, n_pix, torch.float32, d)
+                t32 = _ent_grads(ent, z, n_pix, torch.float32, d,
+                                 per_sample=True)
+                err = {k: float((g32[k].double() - g).abs().max()
+                                / g.abs().max()) for k, g in g64.items()}
+                terms = {k: float((t32[k].double().sum(0) - g).abs().max()
+                                  / g.abs().max()) for k, g in g64.items()}
+                sums = {k: float((g32[k].double() - t32[k].double().sum(0))
+                                 .abs().max() / g.abs().max())
+                        for k, g in g64.items()}
+                lik = _ent_likelihood(ent, z, torch.float32, d).double()
+                p_err = float(((lik - p64) / p64).abs().max())
+                k = max(err, key=err.get)
+                worst[name, mode] = max(worst.get((name, mode), 0.0), err[k])
+                parts.append(
+                    f"{name} err {err[k]:.3g} ({k}), terms {terms[k]:.3g}, "
+                    f"sum {sums[k]:.3g}; H1 {err['H1']:.3g} / "
+                    f"{terms['H1']:.3g} / {sums['H1']:.3g}, H2 "
+                    f"{err['H2']:.3g} / {terms['H2']:.3g} / "
+                    f"{sums['H2']:.3g}; p {p_err:.3g}")
+                if max(err.values()) > ENT_GRAD_TOL:
+                    raise AssertionError(
+                        f"entropy model's float32 gradient on the {name}, "
+                        f"seed {s}, {mode}: {err} of the leaf max, limit "
+                        f"{ENT_GRAD_TOL}")
+            log(f"entropy gradient seed {s} {mode}: " + "; ".join(parts)
+                + f"; cancel H1 {cancel['H1']:.3g}, H2 {cancel['H2']:.3g}, "
+                f"largest {max(cancel.values()):.3g} "
+                f"({max(cancel, key=cancel.get)}); kappa H1 "
+                f"{kappa['H1']:.3g}, H2 {kappa['H2']:.3g}, largest "
+                f"{max(kappa.values()):.3g} ({max(kappa, key=kappa.get)})")
+    log(f"entropy gradient over {ENT_SEEDS} seeds, largest error of the "
+        f"leaf max (limit {ENT_GRAD_TOL}): " + ", ".join(
+            f"{name} {mode} {v:.3g}" for (name, mode), v in worst.items()))
+
+
+def intnet_block_path(seed: int, dev, card: str) -> dict:
+    """A block of ``INTNET_BLOCK`` steps in each mode at B = 8, crop 256
+    after a first block: ms a step, kernel A's launches a step (8 in wrap
+    mode, 0 otherwise: the value path), peak device memory.  Returns the
+    wrap block's launch counts."""
+    from simple_image_compression_network_tpu_torch import intnet
+    from simple_image_compression_network_tpu_torch.utils import data
+    net = _intnet_net()
+    bank = torch.from_numpy(data.training_bank(48, 512, 512, seed=seed)
+                            ).to(dev)
+    counts = {}
+    for mode in ("float", "clip", "wrap"):
+        cfg = _intnet_cfg(mode=mode)
+        params = intnet.init_params(cfg, torch.Generator().manual_seed(seed),
+                                    net, dev)
+        block = intnet.make_train_block(cfg, net)
+        opt = block.tx.init(params)
+        block(params, opt, bank, seed, 0, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = block(params, opt, bank, seed, 2, INTNET_BLOCK)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = read_exact(f"intnet {mode} block", {
+            "conv3x3_s1_int8": INTNET_A[mode] * INTNET_BLOCK,
+            "conv_sparse_int8": 0})
+        if mode == "wrap":
+            counts = got
+        m = {k: float(v) for k, v in m.items()}
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"intnet block {mode}: metrics {m}")
+        log(f"intnet block {mode} [{card}]: B={cfg.batch} crop {cfg.crop}, "
+            f"{INTNET_BLOCK} steps after a first block: "
+            f"{dt * 1e3 / INTNET_BLOCK} ms a step ({INTNET_BLOCK / dt} "
+            f"steps/s, host clock to the synchronize), kernel A "
+            f"{INTNET_A[mode]} launches a step, peak device memory {peak} "
+            f"bytes; mean loss {m['loss']}, bpp {m['bpp']}, PSNR "
+            f"{m['psnr']} dB, oob {m['oob']}")
+    return counts
+
+
+def train_intnet_path(seed: int, card: str) -> tuple:
+    """``train_intnet.main`` at its defaults (crop 256, B = 8) for a few
+    steps a phase into a temporary directory, from init (float, clip,
+    wrap) and from the haar422 construction with its structure frozen
+    (an entropy warm-up, then wrap); each run's kernel A launches gated
+    (8 a wrap or warm-up step, 32 for the static CDFs; the float and clip
+    steps launch none).  Returns the first run's outputs and the launch
+    counts of both."""
+    from simple_image_compression_network_tpu_torch import (
+        intnet_haar, train_intnet)
+    shutil.rmtree(INTNET_DIR, ignore_errors=True)
+    steps = [f"--float-steps={INTNET_STEPS['float']}",
+             f"--pretrain={INTNET_STEPS['clip']}",
+             f"--steps={INTNET_STEPS['wrap']}"]
+    runs = {"train_intnet": (steps + ["--log-every", "2"],
+                             INTNET_STEPS["wrap"]),
+            "train_intnet haar422": (
+                ["--init-haar", "haar422", "--freeze-structure",
+                 "--ent-warmup", "2", "--steps", "4", "--log-every", "2"],
+                2 + 4)}
+    counts, outs = {}, {}
+    size = [f"--crop={INTNET_CROP}", f"--batch={INTNET_B}"]
+    for name, (argv, a_steps) in runs.items():
+        d = os.path.join(INTNET_DIR, name.replace(" ", "_"))
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            params = train_intnet.main(argv + size + [
+                "--seed", str(seed), "--out-dir", d])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        text = out.getvalue()
+        log(text.rstrip())
+        counts[name] = read_exact(name, {
+            "conv3x3_s1_int8": 8 * a_steps + INTNET_CDF_A,
+            "conv_sparse_int8": 0})
+        losses = _losses(text)
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: losses {losses}")
+        files = sorted(os.listdir(d))
+        if files != ["intnet_cdfs.npz", "intnet_trained.msgpack",
+                     "intnet_trained.npz"]:
+            raise AssertionError(f"{name}: wrote {files}")
+        ints = dict(np.load(os.path.join(d, "intnet_trained.npz")))
+        if name.endswith("haar422"):
+            from simple_image_compression_network_tpu_torch.config import (
+                reference_net_for_input)
+            hp = intnet_haar.haar_params(
+                reference_net_for_input(INTNET_CROP, INTNET_CROP),
+                det2_keep=(0, 1, 2, 3, 4, 6, 7))
+            for k, v in hp.items():
+                if not k.startswith("disp") and not np.array_equal(
+                        ints[k][v != 0], v[v != 0]):
+                    raise AssertionError(f"{name}: {k}'s structure moved")
+        log(f"{name} [{card}]: {dt:.3f} s (bank, phases and the CDFs' "
+            f"fit), losses finite, wrote {files}"
+            + ("; the construction's nonzero taps unchanged"
+               if name.endswith("haar422") else ""))
+        outs[name] = (d, params)
+    return outs["train_intnet"], counts
+
+
+def intnet_codec_path(run: tuple, seed: int, batch: int, dev,
+                      card: str) -> dict:
+    """The exported weights and their static CDFs served by ``int_codec``
+    (kernels A, B, C) on B 768x512 images of the >> 1 wire the net was
+    trained on: x_hat and z equal to the float64 golden transform; the
+    shadow file read back equal to the returned shadows."""
+    from simple_image_compression_network_tpu_torch import intnet
+    from simple_image_compression_network_tpu_torch.codec import int_codec
+    from simple_image_compression_network_tpu_torch.models import codec_int
+    from simple_image_compression_network_tpu_torch.utils import (
+        train_ckpt, weights_io)
+    d, shadows = run
+    back = train_ckpt.restore_params(
+        os.path.join(d, "intnet_trained.msgpack"),
+        {k: v.cpu() for k, v in shadows.items()},
+        to_jax=intnet.intnet_params_to_jax,
+        from_jax=intnet.intnet_params_from_jax)
+    if any(not torch.equal(v, shadows[k].cpu()) for k, v in back.items()):
+        raise AssertionError("the shadow file differs from the shadows")
+    ints = dict(np.load(os.path.join(d, "intnet_trained.npz")))
+    cdfs = weights_io.load_static_cdfs(os.path.join(d, "intnet_cdfs.npz"))
+    params = weights_io.params_from_jax(
+        {k: v for k, v in ints.items() if not k.startswith("disp")})
+    net = codec_int.IntCodecNet(params, device=dev)
+    imgs = make_images(seed + 3, batch)
+    x = torch.from_numpy(imgs // 2).to(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    blobs = int_codec.compress_batch(net, x, static_cdfs=cdfs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_hat, z_hat = int_codec.decompress_batch(net, blobs, static_cdfs=cdfs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_exact("trained int8", {"conv3x3_s1_int8": 8,
+                                         "rans_encode": 1, "rans_decode": 1})
+    gold = {k: v.to(dev) for k, v in params.items()}
+    z_ref = codec_int.analysis_int8(gold, x, impl=codec_int.GOLDEN_PLAN)
+    require_equal("trained int8 z_hat == golden", z_hat, z_ref)
+    require_equal("trained int8 x_hat == golden eight_layers_net", x_hat,
+                  codec_int.synthesis_int8(gold, z_ref,
+                                           impl=codec_int.GOLDEN_PLAN))
+    n_bytes = sum(len(b) for b in blobs)
+    disp = (ints["disp_a"] * x_hat.cpu().numpy().astype(np.float64)
+            + ints["disp_b"])
+    mse = np.mean((np.clip(np.round(disp), 0, 255) - imgs) ** 2)
+    log(f"trained int8 [{card}]: B={batch} 768x512 (>> 1 wire), "
+        f"{n_bytes} container bytes, {8 * n_bytes / (batch * H * W)} bpp, "
+        f"PSNR {10 * np.log10(255.0 ** 2 / mse)} dB after a few steps; "
+        f"encode {(t1 - t0) * 1e3} ms, decode {(t2 - t1) * 1e3} ms; x_hat "
+        f"and z == the float64 golden; shadows read back bitwise")
+    return counts
+
+
+def train_sp_path(seed: int, dev, card: str) -> None:
+    """``train_loop --sp 2`` (the scale hyperprior, crop 256, B = 2): two
+    ranks, gloo on one card (NCCL with a card each), each on its 128 rows
+    with halos that carry gradients back; ``main`` raises unless both end
+    bitwise equal.  Against one process on the same crops and noise: each
+    parameter within the ``--dp`` tolerance of the CPU tests (2e-2 * lr
+    where both steps' |g| >= 1e-2 * leaf max, 4 * lr everywhere)."""
+    from simple_image_compression_network_tpu_torch import train, train_loop
+    from simple_image_compression_network_tpu_torch.utils import data
+    crop, batch = SP_CROP, 2
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = train_loop.main(["--sp", "2", "--batch", str(batch), "--steps",
+                               str(SP_STEPS), "--log-every", "1", "--seed",
+                               str(seed), "--bank", "1f", "--crop",
+                               str(crop)])
+    dt = time.perf_counter() - t0
+    text = out.getvalue()
+    log(text.rstrip())
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    if not all(f"rank {r} of 2 ({backend})" in text for r in range(2)):
+        raise AssertionError("train_loop --sp 2 did not report both ranks")
+    cfg = train.TrainConfig(batch=batch, crop=crop)
+    model, opt = train.init_state(cfg, seed, dev)
+    seen = []
+
+    def keep(grads, metrics):
+        seen.append([g.abs() for g in grads])
+        return grads, metrics
+    step_fn = train.make_train_step(cfg, model, grad_mean=keep)
+    images = data.synthetic_images(16, 512, 512, seed=seed)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    for step in range(SP_STEPS):
+        crops = torch.from_numpy(data.random_crops(images, crop, batch, rng))
+        noise = model.noise_like(crops.shape,
+                                 train.step_generator(gen, seed, step))
+        step_fn(opt, crops.to(dev), noise)
+    worst_big = worst_all = 0.0
+    for i, (k, want) in enumerate(model.state_dict().items()):
+        big = torch.ones_like(want, dtype=torch.bool)
+        for g in seen:
+            big &= g[i] >= 1e-2 * g[i].max()
+        diff = (got[k].to(dev) - want).abs() / (SP_STEPS * cfg.lr)
+        worst_all = max(worst_all, float(diff.max()) / 2.0)
+        if big.any():
+            worst_big = max(worst_big, float(diff[big].max()) / 1e-2)
+    log(f"train_loop --sp 2 [{card}]: two {backend} ranks, crop {crop} "
+        f"cut into two tiles of {crop // 2} rows, {SP_STEPS} steps at "
+        f"B={batch}: the "
+        f"ranks' parameters bitwise equal; against one process on the same "
+        f"crops and noise, ratios to the --dp tolerance: where |g| is large "
+        f"{worst_big:.4f}, anywhere {worst_all:.4f}; {dt:.3f} s from spawn "
+        f"to results")
+    if max(worst_big, worst_all) > 1.0:
+        raise AssertionError("train_loop --sp 2 differs from one process")
+
+
+def _pack_fields(fields: np.ndarray, wbit: int) -> list:
+    """(..., SIMD) signed fields -> ap_uint<SIMD*WBIT> words, field i in
+    bits [i*WBIT, (i+1)*WBIT)."""
+    flat = fields.reshape(-1, fields.shape[-1]).astype(np.int64) & (
+        (1 << wbit) - 1)
+    shifts = np.arange(flat.shape[1], dtype=np.int64) * wbit
+    return [int(w) for w in (flat << shifts).sum(axis=1)]
+
+
+def header_round_trip(card: str) -> None:
+    """``reference_weights.npz`` packed into a ``memdata_nonsquare.h`` in
+    the fold layout of ``config.py``'s PE / SIMD / TILES, read back by
+    ``weights_io.load_reference_params``: equal to the npz."""
+    from simple_image_compression_network_tpu_torch.config import (
+        REFERENCE_NET)
+    from simple_image_compression_network_tpu_torch.utils import weights_io
+    params = weights_io.load_checkpoint(
+        os.path.join(ROOT, "checkpoints", "reference_weights.npz"))
+    parts = []
+    for i, layer in enumerate(REFERENCE_NET.layers):
+        w = params[f"w{i}"]
+        fold = np.stack([w[pe::layer.pe].transpose(0, 2, 1, 3)
+                         for pe in range(layer.pe)]).reshape(
+                             layer.pe, -1, layer.simd)
+        for name, simd, wbit, pe, tiles, words in (
+                (f"weights_layer{i}", layer.simd, layer.w_bits, layer.pe,
+                 fold.shape[1], _pack_fields(fold, layer.w_bits)),
+                (f"bias_layer{i}", 1, 8, 1, layer.out_ch,
+                 _pack_fields(params[f"b{i}"][:, None], 8))):
+            body = ",\n".join("{" + ",".join(hex(v) for v in words[
+                p * tiles:(p + 1) * tiles]) + "}" for p in range(pe))
+            parts.append(f"static FixedPointWeights<{simd}, ap_int<{wbit}>, "
+                         f"{pe}, {tiles}> {name} = {{{{\n{body}\n}}}};\n")
+    os.makedirs(INTNET_DIR, exist_ok=True)
+    path = os.path.join(INTNET_DIR, "memdata_nonsquare.h")
+    with open(path, "w") as f:
+        f.write("".join(parts))
+    t0 = time.perf_counter()
+    got = weights_io.load_reference_params(path)
+    dt = time.perf_counter() - t0
+    for k, v in params.items():
+        if got[k].dtype != np.int8 or not np.array_equal(got[k], v):
+            raise AssertionError(f"header round trip: {k} differs")
+    log(f"header round trip [{card}]: reference_weights.npz packed into a "
+        f"{os.path.getsize(path)}-byte memdata_nonsquare.h (16 "
+        f"declarations) and parsed back equal in {dt:.3f} s")
+
+
 # The sharded phase: ranks are processes sharing the one card over gloo
 # (NCCL refuses two ranks on one card), so their times are time-sliced,
 # not multi-chip scaling.
@@ -3742,6 +4380,17 @@ def main() -> int:
                                   smi)
         train_dp_path(args.seed, smi)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    with phase("integer wrap-STE training at crop 256"):
+        intnet_layers_check(args.seed, dev)
+        intnet_step_check(args.seed, dev)
+        ent_grad_spread(args.seed, dev)
+        intnet_block = intnet_block_path(args.seed, dev, smi)
+        intnet_run, intnet_runs = train_intnet_path(args.seed, smi)
+        intnet_codec = intnet_codec_path(intnet_run, args.seed, args.batch,
+                                         dev, smi)
+        train_sp_path(args.seed, dev, smi)
+        header_round_trip(smi)
+        shutil.rmtree(INTNET_DIR, ignore_errors=True)
     with phase("sharded int8 codec at 768x512 and hyperprior codecs at "
                "1024x1024 on 1, 2 and 4 ranks"):
         sharded = sharded_path(args.seed, args.batch, golden,
@@ -3750,7 +4399,8 @@ def main() -> int:
     paths = {"int8": int8, **plans, "dense encode": dense, "hyper": hyper,
              "meanscale": meanscale, **bf16, "device chain": chain, **piped,
              **wavelet, **host, **evals, "trained hyper": trained,
-             **sharded}
+             "intnet wrap block": intnet_block, **intnet_runs,
+             "trained int8": intnet_codec, **sharded}
     launches = {name: {path: c[name] for path, c in paths.items()
                        if name in c} for name in counted()}
     launches["conv3x3_s1_int8 (pallas plan)"] = {

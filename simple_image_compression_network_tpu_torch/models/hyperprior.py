@@ -203,13 +203,13 @@ class HyperSynthesis(nn.Module):
         self.ConvTranspose_1 = _Deconv(n, n)
         self.Conv_0 = _conv(n, self.outputs * m, k=3, s=1)
 
-    def _last(self, z: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.ConvTranspose_0(z.to(self.dtype)))
-        h = F.relu(self.ConvTranspose_1(h))
-        return self.Conv_0(h).float()
+    def _last(self, z: torch.Tensor, conv=_whole) -> torch.Tensor:
+        h = F.relu(conv(self.ConvTranspose_0, z.to(self.dtype)))
+        h = F.relu(conv(self.ConvTranspose_1, h))
+        return conv(self.Conv_0, h).float()
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return torch.exp(torch.clamp(self._last(z), -10.0, 10.0))
+    def forward(self, z: torch.Tensor, conv=_whole) -> torch.Tensor:
+        return torch.exp(torch.clamp(self._last(z, conv), -10.0, 10.0))
 
 
 class HyperSynthesisMeanScale(HyperSynthesis):
@@ -219,9 +219,9 @@ class HyperSynthesisMeanScale(HyperSynthesis):
 
     outputs = 2
 
-    def forward(self, z: torch.Tensor
+    def forward(self, z: torch.Tensor, conv=_whole
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        mu, log_sigma = torch.chunk(self._last(z), 2, dim=1)
+        mu, log_sigma = torch.chunk(self._last(z, conv), 2, dim=1)
         return mu, torch.exp(torch.clamp(log_sigma, -10.0, 10.0))
 
 
@@ -317,15 +317,17 @@ class FactorizedPrior(_Autoencoder):
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                conv=_whole) -> Dict[str, torch.Tensor]:
         """x (B, X, Y, 3) NHWC in [0, 1] -> the JAX package's training
         quantities (NHWC): y quantized by ``noise`` (or noise drawn from
-        ``generator``), else rounded straight through."""
+        ``generator``), else rounded straight through.  ``conv(layer, h)``
+        runs each conv layer (``_whole``; ``train_loop --sp`` passes a
+        rank's X tile)."""
         noise = self._noise(x, noise, generator)
-        y_hat = self._quantize(self.g_a(_nchw(x)), noise, "y")
+        y_hat = self._quantize(self.g_a(_nchw(x), conv), noise, "y")
         bits_y = self.bottleneck(_nhwc_view(y_hat))
-        x_hat = self.g_s(y_hat)
+        x_hat = self.g_s(y_hat, conv)
         num_pixels = x.shape[0] * x.shape[1] * x.shape[2]   # B X Y (NHWC)
         return {"x_hat": _nhwc_view(x_hat), "y_hat": _nhwc_view(y_hat),
                 "bits": bits_y, "bpp": bits_y / num_pixels}
@@ -378,10 +380,10 @@ class _Hyperprior(_Autoencoder):
         return model
 
     def _training_out(self, x: torch.Tensor, y_hat: torch.Tensor,
-                      z_hat: torch.Tensor, bits_y: torch.Tensor,
+                      z_hat: torch.Tensor, bits_y: torch.Tensor, conv,
                       **prior: torch.Tensor) -> Dict[str, torch.Tensor]:
         bits_z = self.bottleneck(_nhwc_view(z_hat))
-        x_hat = self.g_s(y_hat)
+        x_hat = self.g_s(y_hat, conv)
         num_pixels = x.shape[0] * x.shape[1] * x.shape[2]   # B X Y (NHWC)
         bits = bits_y + bits_z
         return {"x_hat": _nhwc_view(x_hat), "y_hat": _nhwc_view(y_hat),
@@ -418,20 +420,22 @@ class ScaleHyperprior(_Hyperprior):
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                conv=_whole) -> Dict[str, torch.Tensor]:
         """x (B, X, Y, 3) NHWC in [0, 1] -> the JAX package's training
         quantities (x_hat, y_hat, z_hat, sigma NHWC; bits_y, bits_z, bits,
         bpp): y and z plus ``noise`` (or noise drawn from ``generator``),
-        else rounded straight through."""
+        else rounded straight through.  ``conv`` as in
+        ``FactorizedPrior.forward``."""
         noise = self._noise(x, noise, generator)
-        y = self.g_a(_nchw(x))
-        z = self.h_a(y)
+        y = self.g_a(_nchw(x), conv)
+        z = self.h_a(y, conv)
         y_hat = self._quantize(y, noise, "y")
         z_hat = self._quantize(z, noise, "z")
-        sigma = self.h_s(z_hat)
+        sigma = self.h_s(z_hat, conv)
         bits_y = entropy.GaussianConditional.bits(y_hat, sigma)
-        return self._training_out(x, y_hat, z_hat, bits_y, sigma=sigma)
+        return self._training_out(x, y_hat, z_hat, bits_y, conv,
+                                  sigma=sigma)
 
     @torch.no_grad()
     def scales_from_z(self, z_hat: torch.Tensor) -> torch.Tensor:
@@ -448,20 +452,20 @@ class MeanScaleHyperprior(_Hyperprior):
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                conv=_whole) -> Dict[str, torch.Tensor]:
         """As ``ScaleHyperprior.forward``, with mu: the noise is added to y
         itself; without noise y is rounded about mu, round(y - mu) + mu."""
         noise = self._noise(x, noise, generator)
-        y = self.g_a(_nchw(x))
-        z_hat = self._quantize(self.h_a(y), noise, "z")
-        mu, sigma = self.h_s(z_hat)
+        y = self.g_a(_nchw(x), conv)
+        z_hat = self._quantize(self.h_a(y, conv), noise, "z")
+        mu, sigma = self.h_s(z_hat, conv)
         if noise is None:
             y_hat = entropy.quantize_ste(y - mu) + mu
         else:
             y_hat = entropy.quantize_noise(y, noise["y"])
         bits_y = entropy.GaussianConditional.bits(y_hat, sigma, mu)
-        return self._training_out(x, y_hat, z_hat, bits_y, mu=mu,
+        return self._training_out(x, y_hat, z_hat, bits_y, conv, mu=mu,
                                   sigma=sigma)
 
     @torch.no_grad()

@@ -8,8 +8,9 @@ in the same order:
 
 * the float transforms g_a, h_a and g_s run on the tiles, each conv on its
   tile extended by the halo rows its receptive field needs, exchanged with
-  the neighbouring ranks (``spatial.halo_exchange``; JAX's GSPMD inserts
-  these exchanges itself).  GDN, IGDN, ReLU, ``abs`` and ``round`` act on
+  the neighbouring ranks (``spatial.halo_exchange_grad``, whose backward
+  carries the halos' gradients back, so that ``train_loop --sp`` trains
+  through the same layers; JAX's GSPMD inserts these exchanges itself).  GDN, IGDN, ReLU, ``abs`` and ``round`` act on
   a tile as they are;
 * the prior: the rounded z_hat tiles are all-gathered (small: N x zx x zy
   an image) and every rank runs the wrapped codec's own ``_prior_from_z``
@@ -55,7 +56,7 @@ def conv_tile(layer, h: torch.Tensor, mesh: Mesh, axis: str = "x"
     (1, 1) for k3/s1), then the layer's weight and bias run with no pad on
     X and its own on Y.  The tile's rows must be a multiple of s."""
     k, s, p = layer.kernel_size[0], layer.stride[0], layer.padding[0]
-    hx = spatial.halo_exchange(h, (p, k - s - p), mesh, axis, 2)
+    hx = spatial.halo_exchange_grad(h, (p, k - s - p), mesh, axis, 2)
     return layer.conv(hx, (0, layer.padding[1]))
 
 
@@ -67,7 +68,8 @@ def deconv_tile(layer: _Deconv, h: torch.Tensor, mesh: Mesh,
     tile (input rows a - 1 .. b) gives output rows 2a - 2 .. 2b + 1; the
     first and last two are cut.  The layer keeps its own pads, so cuDNN
     sees the whole image's convolution on fewer rows."""
-    return layer(spatial.halo_exchange(h, 1, mesh, axis, 2))[..., 2:-2, :]
+    hx = spatial.halo_exchange_grad(h, 1, mesh, axis, 2)
+    return layer(hx)[..., 2:-2, :]
 
 
 def _tiled(mesh: Mesh, axis: str):

@@ -81,6 +81,31 @@ def _concat(h: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       hi.to(h.device, non_blocking=True)], dim)
 
 
+def _swap(to_lo: torch.Tensor, to_hi: torch.Tensor, from_lo: torch.Tensor,
+          from_hi: torch.Tensor, mesh: Mesh, axis: str
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Send ``to_lo`` to the mesh neighbour below along ``axis`` and
+    ``to_hi`` to the one above, and receive what each sends back, shaped
+    as ``from_lo`` / ``from_hi`` (zeros, kept where there is no
+    neighbour).  Returns the two received tensors, on the mesh's
+    backend's side (host memory when staged)."""
+    lo_rank, hi_rank = mesh.neighbours(axis)
+    got, ops, recv = [from_lo, from_hi], [], []
+    for side, (peer, out) in enumerate(((lo_rank, to_lo), (hi_rank, to_hi))):
+        if peer is None:
+            continue
+        got[side] = _inbound(got[side], mesh)
+        recv.append(got[side])
+        ops += [dist.P2POp(dist.isend, _outbound(out, mesh), peer),
+                dist.P2POp(dist.irecv, got[side], peer)]
+    for work in (dist.batch_isend_irecv(ops) if ops else ()):
+        work.wait()
+    if mesh.staged:
+        halo_exchange.staged_bytes += sum(
+            g.numel() * g.element_size() for g in recv)
+    return got[0], got[1]
+
+
 def halo_exchange(h: torch.Tensor, halo: Union[int, Tuple[int, int]],
                   mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     """Concatenate boundary slices from both mesh neighbours along
@@ -88,29 +113,57 @@ def halo_exchange(h: torch.Tensor, halo: Union[int, Tuple[int, int]],
     ``halo`` slices on each side, or a (before, after) pair.  With one
     rank on the axis this is a zero pad."""
     before, after = (halo, halo) if isinstance(halo, int) else halo
-    lo_rank, hi_rank = mesh.neighbours(axis)
-    ops, got, recv = [], [_zero_border(h, before, dim),
-                          _zero_border(h, after, dim)], []
     # the rank below takes this tile's first ``after`` slices, the rank
     # above its last ``before``
-    for side, (peer, start, n) in enumerate((
-            (lo_rank, 0, after), (hi_rank, h.shape[dim] - before, before))):
-        if peer is None:
-            continue
-        got[side] = _inbound(got[side], mesh)
-        recv.append(got[side])
-        ops += [dist.P2POp(dist.isend,
-                           _outbound(h.narrow(dim, start, n), mesh), peer),
-                dist.P2POp(dist.irecv, got[side], peer)]
-    for work in (dist.batch_isend_irecv(ops) if ops else ()):
-        work.wait()
-    if mesh.staged:
-        halo_exchange.staged_bytes += sum(
-            g.numel() * g.element_size() for g in recv)
-    return _concat(h, got[0], got[1], dim)
+    lo, hi = _swap(h.narrow(dim, 0, after),
+                   h.narrow(dim, h.shape[dim] - before, before),
+                   _zero_border(h, before, dim), _zero_border(h, after, dim),
+                   mesh, axis)
+    return _concat(h, lo, hi, dim)
 
 
 halo_exchange.staged_bytes = 0
+
+
+class _HaloGrad(torch.autograd.Function):
+    """``halo_exchange`` whose backward sends each received halo's
+    gradient back to the rank that owns those slices, which adds it into
+    its boundary gradient (a halo past the global ends was zeros: its
+    gradient goes nowhere).  Every rank of the axis must run the same
+    backward, as every rank runs the same forward."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, before: int, after: int, mesh: Mesh,
+                axis: str, dim: int) -> torch.Tensor:
+        ctx.halo = (before, after, mesh, axis, dim)
+        return halo_exchange(h, (before, after), mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        before, after, mesh, axis, dim = ctx.halo
+        n = g.shape[dim] - before - after
+        # the rank below sent this tile's first ``before`` slices: their
+        # gradient goes back to it, and it returns the gradient of the
+        # ``after`` slices it took from this tile (the rank above alike)
+        lo, hi = _swap(g.narrow(dim, 0, before),
+                       g.narrow(dim, before + n, after),
+                       _zero_border(g, after, dim),
+                       _zero_border(g, before, dim), mesh, axis)
+        out = g.narrow(dim, before, n).clone()
+        out.narrow(dim, 0, after).add_(lo.to(g.device))
+        out.narrow(dim, n - before, before).add_(hi.to(g.device))
+        return out, None, None, None, None, None
+
+
+def halo_exchange_grad(h: torch.Tensor,
+                       halo: Union[int, Tuple[int, int]], mesh: Mesh,
+                       axis: str, dim: int) -> torch.Tensor:
+    """``halo_exchange`` with gradients: the same values, and a backward
+    that carries the halos' gradients back to their owners (what GSPMD
+    gives a sharded conv in the JAX package).  Under ``torch.no_grad`` it
+    is ``halo_exchange``."""
+    before, after = (halo, halo) if isinstance(halo, int) else halo
+    return _HaloGrad.apply(h, before, after, mesh, axis, dim)
 
 
 def halo_exchange_x(h: torch.Tensor, halo: int, mesh: Mesh,

@@ -94,9 +94,13 @@ class ClipAdam:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
-               grads: List[torch.Tensor], state: AdamState) -> None:
+               grads: List[torch.Tensor], state: AdamState,
+               mask: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Clip ``grads`` (in ``params``' order), then one Adam step on
-        ``params`` and ``state``, in place."""
+        ``params`` and ``state``, in place.  ``mask``: per-element 0/1
+        factors of the update, applied after Adam (optax's chain of the
+        clip, Adam, then a mask: the norm and the moments include the
+        masked elements)."""
         grads = self.clip(grads)
         names = list(params)
         mu = [state.mu[k] for k in names]
@@ -115,6 +119,8 @@ class ClipAdam:
         torch._foreach_add_(den, self.eps)
         step = torch._foreach_div(torch._foreach_div(mu, bc1), den)
         torch._foreach_mul_(step, -self.lr)
+        if mask is not None:
+            torch._foreach_mul_(step, [mask[k] for k in names])
         torch._foreach_add_([params[k] for k in names], step)
 
 
@@ -160,22 +166,29 @@ GradMean = Callable[[List[torch.Tensor], Dict[str, torch.Tensor]],
 
 
 def make_train_step(cfg: TrainConfig, model,
-                    grad_mean: Optional[GradMean] = None):
+                    grad_mean: Optional[GradMean] = None,
+                    loss_fn: Optional[Callable] = None):
     """Returns ``train_step(opt_state, batch, noise) -> metrics``: one
     step of ``model`` on ``batch`` (NHWC, the model's device) with the
     latents quantized by ``noise``, updating the parameters and
     ``opt_state`` in place; the metrics stay on the device.
 
-    ``grad_mean(grads, metrics)``, when given, returns the ranks' means of
-    both (data-parallel training); the update then uses the mean."""
+    ``grad_mean(grads, metrics)``, when given, returns the ranks'
+    reductions of both (data-parallel or spatial training); the update
+    then uses them.  ``loss_fn(model, batch, noise) -> (loss, metrics)``
+    replaces ``rd_loss`` (a rank's share of the loss of a sharded
+    batch)."""
     tx = build_optimizer(cfg)
     params = dict(model.named_parameters())
     leaves = list(params.values())
+    if loss_fn is None:
+        def loss_fn(model, batch, noise):
+            return rd_loss(model, batch, noise, cfg.rd_lambda)
 
     def train_step(opt_state: AdamState, batch: torch.Tensor,
                    noise: Optional[Dict]) -> Dict[str, torch.Tensor]:
         with full_float32():
-            loss, metrics = rd_loss(model, batch, noise, cfg.rd_lambda)
+            loss, metrics = loss_fn(model, batch, noise)
             grads = list(torch.autograd.grad(loss, leaves))
         metrics = {k: v.detach() for k, v in metrics.items()}
         if grad_mean is not None:
@@ -199,6 +212,13 @@ def device_random_crops(bank: torch.Tensor, crop: int, batch: int,
     """On-device crop sampling: (N, X, Y, 3) uint8 bank -> (B, crop, crop,
     3) float32 in [0, 1], the image and offsets drawn from ``generator``
     (on the bank's device): no host transfer and no wait."""
+    return device_random_crops_u8(bank, crop, batch, generator).to(
+        torch.float32) / 255.0
+
+
+def device_random_crops_u8(bank: torch.Tensor, crop: int, batch: int,
+                           generator: torch.Generator) -> torch.Tensor:
+    """``device_random_crops`` before the scaling: the uint8 crops."""
     n, x, y, _ = bank.shape
     dev = bank.device
     idx = torch.randint(0, n, (batch,), generator=generator, device=dev)
@@ -207,9 +227,8 @@ def device_random_crops(bank: torch.Tensor, crop: int, batch: int,
     oy = torch.randint(0, y - crop + 1, (batch,), generator=generator,
                        device=dev)
     r = torch.arange(crop, device=dev)
-    crops = bank[idx[:, None, None], (ox[:, None] + r)[:, :, None],
-                 (oy[:, None] + r)[:, None, :]]
-    return crops.to(torch.float32) / 255.0
+    return bank[idx[:, None, None], (ox[:, None] + r)[:, :, None],
+                (oy[:, None] + r)[:, None, :]]
 
 
 def make_train_block(cfg: TrainConfig, model):

@@ -16,13 +16,17 @@ JAX package's format (either package resumes the other's).
 * One device (``--dp`` 1, or 0 with one card): blocks of --log-every steps,
   the crops drawn on the device from the bank held there, one read of the
   metrics a block (``train.make_train_block``).
-* ``--dp N > 1``: N ranks (``parallel/distributed.spawn_ranks``; NCCL with a
-  card a rank, else gloo), each taking its share of the batch from host
-  crops seeded by its rank, as the JAX package's processes do; the
-  gradients are averaged over the ranks in one all-reduce a step before
-  the clip, so every rank applies the same update, and rank 0 saves.
-* ``--sp > 1`` (the crop's X axis over ranks, whose halos must carry
-  gradients back) is not ported.
+* ``--dp N``, ``--sp M`` with N * M > 1: a (dp, sp) grid of ranks
+  (``parallel/distributed.spawn_ranks``; NCCL with a card a rank, else
+  gloo), or, when a launcher started one process a rank (``MASTER_ADDR``,
+  ``WORLD_SIZE``, ``RANK``), this process as its rank.  The batch is cut
+  over dp, each group taking its share from host crops seeded by its data
+  index, as the JAX package's processes do; the crop's X axis is cut over
+  sp, each conv on a rank's rows with halos whose backward carries the
+  gradients back to their owners (JAX's GSPMD makes both).  The gradients
+  are summed over sp and averaged over dp in one all-reduce a step before
+  the clip, so every rank applies the update one process would make on
+  the whole batch, and rank 0 saves.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch
 import torch.distributed as dist
 
 from . import train
-from .parallel import distributed
+from .parallel import distributed, hyper_sharded
+from .parallel import mesh as meshlib
 from .utils import data as datalib
 from .utils import train_ckpt
 from .utils.device import resolve_device
@@ -66,9 +71,10 @@ def _parse(argv) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=500)
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel ranks (0 = one a card, 1 on the CPU)")
+                    help="data-parallel ranks (0 = max(1, n_dev // sp), "
+                    "n_dev the cards, 1 on the CPU)")
     ap.add_argument("--sp", type=int, default=1,
-                    help="spatial ranks over the crop's X (not ported)")
+                    help="spatial ranks over the crop's X")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
@@ -141,106 +147,222 @@ def _single(args, cfg, device) -> Dict[str, torch.Tensor]:
     return model.state_dict()
 
 
-def _grad_mean(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]):
-    """The ranks' means of the gradients and metrics: one all-reduce of
-    one flat buffer, staged through host memory where the backend (gloo)
-    moves host tensors only."""
-    flat = torch.cat([g.reshape(-1) for g in grads]
-                     + [torch.stack(list(metrics.values()))])
-    staged = flat.is_cuda and dist.get_backend() == "gloo"
-    buf = flat.cpu() if staged else flat
-    dist.all_reduce(buf)
-    if staged:
-        flat.copy_(buf)
-    flat /= dist.get_world_size()
-    out = list(torch.split(flat, [g.numel() for g in grads]
-                           + [len(metrics)]))
-    return ([o.view_as(g) for o, g in zip(out, grads)],
-            dict(zip(metrics, out[-1])))
+def _sp_tile(cfg: train.TrainConfig, sp: int) -> None:
+    """Refuse a crop whose X does not cut into ``sp`` tiles of whole
+    latent rows: each rank needs at least one row of z (crop / 64 rows)
+    in a hyperprior, of y (crop / 16) in the factorized model."""
+    side = 16 if cfg.model == "factorized" else 64
+    if cfg.crop % (side * sp):
+        raise ValueError(
+            f"--sp {sp} cuts the crop's {cfg.crop} rows into tiles of "
+            f"{cfg.crop / sp:g}: the {cfg.model} model needs a multiple of "
+            f"{side} a rank (a whole latent row each)")
 
 
-def _dp_rank(args: argparse.Namespace, device: str) -> dict:
-    """One rank of ``--dp N``: the JAX package's multi-process input (host
-    crops from ``default_rng(seed + start + rank * 1_000_003)``, the rank's
-    share of the batch) and noise, the step's draw for the whole batch cut
-    to the rank's share, so the ranks together take the step one process
-    would take on the whole batch.  Returns the rank's parameters and
-    host ms a step."""
-    rank, world = dist.get_rank(), dist.get_world_size()
-    if args.batch % world:
+def _reduce(dp: int):
+    """``grad_mean`` of a (dp, sp) rank: the gradients and the loss's
+    pieces summed over every rank in one all-reduce of one flat buffer
+    (staged through host memory where the backend, gloo, moves host
+    tensors only), then divided by ``dp``: a sum over the spatial ranks,
+    whose pieces add up to their group's loss, and a mean over the
+    data-parallel groups.  PSNR from the reduced MSE, as JAX takes it
+    from the global batch's."""
+    def reduce(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]):
+        names = [k for k in metrics if k != "psnr"]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [torch.stack([metrics[k] for k in names])])
+        staged = flat.is_cuda and dist.get_backend() == "gloo"
+        buf = flat.cpu() if staged else flat
+        dist.all_reduce(buf)
+        if staged:
+            flat.copy_(buf)
+        flat /= dp
+        out = list(torch.split(flat, [g.numel() for g in grads]
+                               + [len(names)]))
+        m = dict(zip(names, out[-1]))
+        m["psnr"] = -10.0 * torch.log10(torch.clamp(m["mse"], min=1e-12))
+        return [o.view_as(g) for o, g in zip(out, grads)], m
+    return reduce
+
+
+def _tile_loss(cfg: train.TrainConfig, mesh, num_pixels: int):
+    """A spatial rank's share of its group's RD loss: the tile's bits and
+    squared error over the group batch's pixel count (B X Y, the whole
+    crop), each conv on the tile with its halos
+    (``hyper_sharded._tiled``), so the shares sum to the loss of the
+    whole crop."""
+    conv = hyper_sharded._tiled(mesh, "x")
+
+    def loss_fn(model, tile: torch.Tensor, noise: Dict):
+        out = model(tile, noise=noise, conv=conv)
+        bpp = out["bits"] / num_pixels
+        mse = torch.sum(torch.square(out["x_hat"] - tile)) / (
+            3 * num_pixels)
+        loss = bpp + cfg.rd_lambda * (255.0 ** 2) * mse
+        return loss, {"loss": loss, "bpp": bpp, "mse": mse}
+    return loss_fn
+
+
+def _cut(t: torch.Tensor, dim: int, k: int, n: int) -> torch.Tensor:
+    """Slice k of n equal slices of ``t`` along ``dim``."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, k * size, size)
+
+
+def _rank(args: argparse.Namespace, device: str) -> dict:
+    """One rank of a (dp, sp) grid (rank = data index * sp + x index).
+
+    * Input: the JAX package's multi-process pipeline, host crops from
+      ``default_rng(seed + start + d * 1_000_003)`` for data index d, so
+      the sp ranks of one group take the same crops, the group's share of
+      the batch; a rank keeps its X rows of them.
+    * Noise: the step's draw for the whole batch, cut to the group's
+      images and the rank's rows of y and z.
+    * Step: with sp > 1 each conv runs on the tile with halos that carry
+      gradients back (``_tile_loss``); the gradients are summed over sp and
+      averaged over dp (``_reduce``), so every rank applies the update one
+      process would make on the whole batch.  Rank 0 saves.
+
+    Returns the rank's parameters, host ms a step and last metrics."""
+    world = dist.get_world_size()
+    sp = args.sp
+    dp = world // sp
+    if args.batch % dp:
         raise ValueError(f"--batch {args.batch} does not divide over "
-                         f"{world} ranks")
-    local = args.batch // world
-    device = torch.device(device)
-    if device.type == "cuda":       # the card spawn_ranks gave this rank
-        device = torch.device("cuda", torch.cuda.current_device())
+                         f"{dp} data-parallel ranks")
     cfg = _config(args)
+    device = torch.device(device)
+    if device.type == "cuda":       # the card this rank was given
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = meshlib.make_mesh((dp, sp), ("data", "x"), device)
+    d, x = mesh.coord("data"), mesh.coord("x")
+    local = args.batch // dp
     model, opt_state, start = _start(args, cfg, device)
-    step_fn = train.make_train_step(cfg, model, grad_mean=_grad_mean)
+    loss_fn = (_tile_loss(cfg, mesh, local * cfg.crop * cfg.crop)
+               if sp > 1 else None)
+    step_fn = train.make_train_step(cfg, model, grad_mean=_reduce(dp),
+                                    loss_fn=loss_fn)
     images = _images(args)
-    rng = np.random.default_rng(args.seed + start + rank * 1_000_003)
+    rng = np.random.default_rng(args.seed + start + d * 1_000_003)
     gen = torch.Generator(device=device)
     shape = (args.batch, args.crop, args.crop, 3)
     ms: List[float] = []
+    metrics: Dict[str, torch.Tensor] = {}
     t0 = time.perf_counter()
     for step in range(start, args.steps):
         t_step = time.perf_counter()
-        batch = torch.from_numpy(datalib.random_crops(
-            images, args.crop, local, rng)).to(device)
-        noise = {k: v[rank * local:(rank + 1) * local] for k, v in
-                 model.noise_like(shape, train.step_generator(
+        crops = datalib.random_crops(images, args.crop, local, rng)
+        batch = _cut(torch.from_numpy(crops), 1, x, sp).to(device)
+        noise = {k: _cut(v[d * local:(d + 1) * local], 2, x, sp)
+                 for k, v in model.noise_like(shape, train.step_generator(
                      gen, args.seed, step)).items()}
         metrics = step_fn(opt_state, batch, noise)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ms.append((time.perf_counter() - t_step) * 1e3)
-        if (step + 1) % args.log_every == 0 and rank == 0:
+        if (step + 1) % args.log_every == 0 and mesh.rank == 0:
             rate = args.log_every / (time.perf_counter() - t0)
             t0 = time.perf_counter()
             _log(step + 1, dict(zip(metrics, torch.stack(
                 list(metrics.values())).tolist())), rate)
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0 and rank == 0:
+        if (args.ckpt_dir and (step + 1) % args.ckpt_every == 0
+                and mesh.rank == 0):
             _save(args, step + 1, model, opt_state)
-    if args.ckpt_dir and rank == 0:
+    if args.ckpt_dir and mesh.rank == 0:
         _save(args, args.steps, model, opt_state)
-    return {"params": _host_state(model), "ms": ms}
+    return {"params": _host_state(model), "ms": ms,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def _data_parallel(args, device) -> Dict[str, torch.Tensor]:
-    n = args.dp
-    backend = ("nccl" if device.type == "cuda"
-               and n <= torch.cuda.device_count() else "gloo")
-    ranks = distributed.spawn_ranks(
-        _dp_rank, n, backend=backend, device=device,
-        timeout_s=RANKS_SETUP_S + RANKS_STEP_S * args.steps,
-        args=(args, str(device)))
+def _same_params(ranks: List[dict], tag: str) -> Dict[str, torch.Tensor]:
+    """Rank 0's parameters, once every rank's are bitwise equal to them;
+    prints each rank's median ms a step."""
     first = ranks[0]["params"]
     for r, res in enumerate(ranks):
         if any(not np.array_equal(first[k], v)
                for k, v in res["params"].items()):
-            raise RuntimeError(f"rank {r} of {n} ended with parameters "
-                               f"other than rank 0's")
+            raise RuntimeError(f"rank {r} of {len(ranks)} ended with "
+                               f"parameters other than rank 0's")
         if res["ms"]:
-            print(f"rank {r} of {n} ({backend}): "
+            print(f"rank {r} of {len(ranks)} ({tag}): "
                   f"{float(np.median(res['ms'])):.3f} ms a step (median of "
                   f"{len(res['ms'])})", flush=True)
     return {k: torch.from_numpy(v) for k, v in first.items()}
 
 
+def _spawned(args, device) -> Dict[str, torch.Tensor]:
+    """``dp * sp`` ranks started here (``spawn_ranks``): NCCL with a card
+    a rank, else gloo."""
+    n = args.dp * args.sp
+    backend = ("nccl" if device.type == "cuda"
+               and n <= torch.cuda.device_count() else "gloo")
+    ranks = distributed.spawn_ranks(
+        _rank, n, backend=backend, device=device,
+        timeout_s=RANKS_SETUP_S + RANKS_STEP_S * args.steps,
+        args=(args, str(device)))
+    return _same_params(ranks, backend)
+
+
+def _launch_layout(gpus: int) -> tuple:
+    """(backend, card) of a rank a launcher started, from its place on its
+    host: ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` (torchrun's), else
+    ``RANK`` and ``WORLD_SIZE`` (a launch on one host).  NCCL when every
+    rank of the host has a card of its own, else gloo; the card is the
+    local rank's (ranks share cards round robin), None without cards."""
+    world = os.environ.get("WORLD_SIZE", "1")
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK",
+                                    os.environ.get("RANK", "0")))
+    if not gpus:
+        return "gloo", None
+    return ("nccl" if local_world <= gpus else "gloo"), local_rank % gpus
+
+
+def _launched(args, device) -> Dict[str, torch.Tensor]:
+    """This process is one rank of a group a launcher started
+    (``initialize_multihost`` has joined it): run the rank here.  Every
+    rank returns the same parameters."""
+    try:
+        res = _rank(args, str(device))
+    finally:
+        dist.destroy_process_group()
+    return {k: torch.from_numpy(v) for k, v in res["params"].items()}
+
+
 def main(argv=None) -> Dict[str, torch.Tensor]:
     """Train; returns the trained parameters as a ``state_dict`` (on the
-    training device; on the host from ``--dp N > 1``)."""
+    training device; on the host from a run over ranks).
+
+    ``dp`` defaults to the JAX package's ``max(1, n_dev // sp)``: n_dev
+    the ranks of a launched group (``MASTER_ADDR``, ``WORLD_SIZE``,
+    ``RANK``, read by ``distributed.initialize_multihost``), else the
+    cards (1 on the CPU)."""
     args = _parse(argv)
-    if args.sp > 1:
-        raise NotImplementedError(
-            "--sp > 1 (the crop's X axis over ranks, halos carrying "
-            "gradients back) is not ported: ROADMAP queue 1 item 6d")
     device = resolve_device(args.device)
-    dp = args.dp or (torch.cuda.device_count() if device.type == "cuda"
-                     else 1)
-    if dp > 1:
-        args.dp = dp
-        return _data_parallel(args, device)
+    if args.sp < 1:
+        raise ValueError(f"--sp {args.sp}")
+    if args.sp > 1:
+        _sp_tile(_config(args), args.sp)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    launched = bool(os.environ.get("MASTER_ADDR"))
+    if launched:
+        n_dev = world
+    else:
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    args.dp = args.dp or max(1, n_dev // args.sp)
+    if launched:
+        if args.dp * args.sp != world:
+            raise ValueError(f"--dp {args.dp} x --sp {args.sp} ranks in a "
+                             f"group of {world}")
+        backend, card = _launch_layout(
+            torch.cuda.device_count() if device.type == "cuda" else 0)
+        if card is not None:
+            torch.cuda.set_device(card)
+        distributed.initialize_multihost(init_timeout=RANKS_SETUP_S,
+                                         backend=backend)
+        return _launched(args, device)
+    if args.dp * args.sp > 1:
+        return _spawned(args, device)
     return _single(args, _config(args), device)
 
 

@@ -8,6 +8,9 @@ and the optimizer state as optax's ``chain(clip_by_global_norm, adam)``
 state ``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}}}``, the
 moments as flax trees of the parameters' names.  So either package resumes
 the other's checkpoints, and ``eval_codec --ckpt`` serves them.
+``save_params`` / ``restore_params`` take the tree map: the hyperprior's by
+default, ``intnet.intnet_params_to_jax`` / ``intnet_params_from_jax`` for
+the integer net's shadow weights (``train_intnet``'s ``<out>.msgpack``).
 
 Writes go to a temporary file that is renamed over the target, so an
 interrupted save never corrupts the latest checkpoint.  ``restore`` takes
@@ -21,7 +24,7 @@ from __future__ import annotations
 import os
 import re
 import tempfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,10 +78,11 @@ def _check(want: Any, got: Any, path: str) -> None:
                          f"has {type(want).__name__}")
 
 
-def _like(template: Dict[str, torch.Tensor], tree: dict
+def _like(template: Dict[str, torch.Tensor], tree: dict,
+          from_jax: Callable = weights_io.hyper_params_from_jax
           ) -> Dict[str, torch.Tensor]:
     """A flax tree -> tensors named, placed and typed as ``template``."""
-    state = weights_io.hyper_params_from_jax(tree)
+    state = from_jax(tree)
     return {k: state[k].to(device=t.device, dtype=t.dtype)
             for k, t in template.items()}
 
@@ -110,20 +114,27 @@ def restore(path: str, params_template: Dict[str, torch.Tensor],
             opt_state)
 
 
-def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:
-    """A params-only inference checkpoint (``*.params.msgpack``, what a
-    model release ships; ``from_checkpoint`` of the serving models reads
-    it)."""
-    payload = {"params": weights_io.hyper_params_to_jax(params)}
+def save_params(path: str, params: Dict[str, torch.Tensor],
+                to_jax: Callable = weights_io.hyper_params_to_jax) -> None:
+    """A params-only checkpoint ``{"params": to_jax(params)}``: with the
+    hyperprior's tree map (the default), what a model release ships
+    (``*.params.msgpack``, read by the serving models'
+    ``from_checkpoint``); with ``intnet.intnet_params_to_jax``, the
+    integer net's shadow weights as the JAX package's ``train_intnet``
+    writes them."""
+    payload = {"params": to_jax(params)}
     _write_atomic(path, msgpack_io.dumps(payload))
 
 
-def restore_params(path: str, params_template: Dict[str, torch.Tensor]
+def restore_params(path: str, params_template: Dict[str, torch.Tensor],
+                   to_jax: Callable = weights_io.hyper_params_to_jax,
+                   from_jax: Callable = weights_io.hyper_params_from_jax
                    ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``save_params`` under the same tree map, each leaf
+    checked against ``params_template``'s (``to_jax`` of it)."""
     tree = msgpack_io.load(path)
-    _check({"params": weights_io.hyper_params_to_jax(params_template)},
-           tree, path)
-    return _like(params_template, tree["params"])
+    _check({"params": to_jax(params_template)}, tree, path)
+    return _like(params_template, tree["params"], from_jax)
 
 
 def latest(directory: str, prefix: str = "ckpt_") -> Optional[str]:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from simple_image_compression_network_tpu_torch import (
-    _build, eval_codec, train, train_loop)
+    _build, eval_codec, intnet, train, train_intnet, train_loop)
 from simple_image_compression_network_tpu_torch.codec import hyper_codec, rans
 from simple_image_compression_network_tpu_torch.models import (
     codec_int, hyperprior)
@@ -104,14 +104,18 @@ def test_meanscale_and_eval_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_training_entry_points_raise_without_a_card(monkeypatch):
-    """``train.build_model``, ``train.init_state`` and ``train_loop.main``
-    (one device and --dp) train on the card unless asked for the CPU."""
+    """``train.build_model``, ``train.init_state``, ``train_loop.main``
+    (one device, --dp and --sp), intnet's trainable build and
+    ``train_intnet.main`` train on the card unless asked for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = train.TrainConfig(model="factorized", n=4, m=6)
     for make in (lambda: train.build_model(cfg),
                  lambda: train.init_state(cfg),
                  lambda: train_loop.main(["--steps", "1"]),
-                 lambda: train_loop.main(["--steps", "1", "--dp", "2"])):
+                 lambda: train_loop.main(["--steps", "1", "--dp", "2"]),
+                 lambda: train_loop.main(["--steps", "1", "--sp", "2"]),
+                 lambda: intnet.init_params(intnet.IntNetTrainConfig()),
+                 lambda: train_intnet.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     model, opt = train.init_state(cfg, device="cpu")
@@ -133,7 +137,8 @@ def test_new_modules_fall_under_the_import_probe():
                 "utils.dump", "utils.profiling", "utils.cache",
                 "parallel.mesh", "parallel.distributed", "parallel.spatial",
                 "parallel.entropy_sharded", "parallel.hyper_sharded",
-                "train", "train_loop", "utils.train_ckpt"):
+                "train", "train_loop", "utils.train_ckpt", "intnet",
+                "train_intnet"):
         assert f"{port.__name__}.{mod}" in names
 
 

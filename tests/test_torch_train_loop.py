@@ -1,9 +1,9 @@
 """The port's training loop (``train_loop.py``) on the CPU at full width
 (the JAX package's ``train_loop`` has no width flags either; its smoke test
 is tests/test_aux.py): a few steps at crop 64 with checkpoints, a resume
-that continues the run exactly, ``--dp 2`` over two gloo ranks against one
-process taking the same global batch with the same noise, and ``--sp``
-refused.
+that continues the run exactly, and ``--dp 2`` over two gloo ranks against
+one process taking the same global batch with the same noise (``--sp``:
+tests/test_torch_train_sp.py).
 
 Tolerance of ``--dp 2`` against one process (the same code, summing the
 batch's gradient in two halves): after two clip+Adam steps each parameter
@@ -63,11 +63,6 @@ def test_train_loop_on_an_image_folder(tmp_path, capsys):
     train_loop.main(BASE + ["--model", "factorized", "--steps", "1",
                             "--data", str(folder)])
     assert "step      1  loss" in capsys.readouterr().out
-
-
-def test_sp_is_refused():
-    with pytest.raises(NotImplementedError, match="6d"):
-        train_loop.main(BASE + ["--sp", "2", "--steps", "1"])
 
 
 def test_dp2_equals_one_process_on_the_global_batch(capsys):
