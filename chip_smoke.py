@@ -10,8 +10,11 @@ cuobjdump), holds each kernel bit-exactly against its plain PyTorch version
 (kernel F and kernel A's forms at the eight layers' shapes, the halo modes,
 and edge shapes off the tiles and the MMA granules; the rANS kernels at the
 paths' shapes and at their edges, the decoders whole and truncated, each
-encoder and decoder on each of its instances), then drives the port's
-paths at full width on B random-seeded 768x512 images:
+encoder and decoder on each of its instances; kernel H on int8 and int32
+symbols at the latent's shape, a ragged N, N = 1,100, blocks of several
+stream rows and its global instance, each on outputs filled with a
+pattern), then drives the port's paths at full width on B random-seeded
+768x512 images:
 
 * the int8 codec's ``compress_batch`` then ``decompress_batch`` with the
   reference weights and the static latent CDFs, checked against the direct
@@ -112,7 +115,10 @@ paths at full width on B random-seeded 768x512 images:
   byte-identical or each difference shown to be a tie that flipped, and
   x_hat within 1e-4.  Reported: the halo bytes staged, on 4 ranks each
   tile conv's bitwise differences from the whole image's conv, encode,
-  decode and h_s ms beside the single-device codec's.
+  decode and h_s ms beside the single-device codec's.  At 1 and 2 ranks
+  the scale model in bf16 against the single-device bf16 codec: its
+  launches, cross-decoding exact both ways, x_hat within 2^-7, and the
+  containers compared byte for byte.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, which shows it ran on its kernels; then each kernel is timed at its
@@ -122,8 +128,10 @@ output block of 3 columns, the one-tap products at K = 108 and N = 4,608,
 A at C = 2,048; the rANS kernels with their table layout and
 outputs made ahead, so that a call launches the kernel alone, by CUDA events
 around calls queued behind a spin kernel, since their wrappers' host time
-can exceed the kernel's; each wrapper's time a call beside it) and, for the
-convs, two yardsticks the port never calls: one cuDNN call of the same
+can exceed the kernel's; each wrapper's time a call beside it; kernel H
+also at a serving batch, S = 256, on int8 and int32 symbols, with
+``encode_batch``'s whole call beside ``encode_batch_compact``'s) and, for
+the convs, two yardsticks the port never calls: one cuDNN call of the same
 layer (float32 without TF32, the same function; bf16, not the same
 function) and ``torch._int_mm`` on the layer's implicit-GEMM shape.  The
 rANS encoders' bound is the larger of their bytes and their serial chain
@@ -162,19 +170,20 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (data sheet)
 BOOST_HZ = 1.98e9         # H100 SXM boost clock (data sheet)
 FP32_FLOPS = 67e12        # H100 SXM float32, no tensor cores (data sheet)
 # The least dependent chain of one rANS encode step, the bound of kernels
-# B, D and H.  freq is known a group ahead, so everything made from it alone
-# is off the chain: the renorm threshold (freq << 16) - 1, 2^16 - freq, and
-# a (magic, sh1, sh2) pair for an exact 32-bit x / freq (the round-up method
-# with a 33-bit magic).  What is left: ISETP (need = x > threshold; the SHF
-# x >> 16 beside it), SEL (y), the division's IMAD.HI (t = hi(y * magic)),
-# IADD (y - t), SHF (>> sh1), IADD (+ t), SHF (>> sh2) = q, and one IMAD,
-# x = q * (2^16 - freq) + (y + start), the IADD y + start beside the
-# division: 8 instructions, each at least the 4 cycles a fixed-latency
-# integer result takes to reach the next.  (The kernels' own SASS chain is
-# longer, 15 instructions: SHF, ISETP, SEL, then ptxas's division IMAD.HI,
-# IMAD.MOV, IMAD, ISETP, IADD, ISETP, IADD, LOP3, IMAD.MOV, IMAD, and the
-# IMAD.IADD and IMAD of the update.)
-CHAIN_CYCLES = 8 * 4
+# B, D and H (the same function).  freq is known a group ahead, so all
+# that is made from it alone is off the chain: the renorm threshold (freq
+# << 16) - 1, c = 2^16 - freq, and the magic number m and shift l of an
+# exact 32-bit y / freq (the round-up method, kernel H's dense_step).  What
+# is left, as H's SASS runs it: ISETP (need = x > threshold; x >> 16
+# beside it), SEL (y), IMAD.HI (hi(y * m) + y, adding y as a 64-bit
+# addend, with its carry out), IMAD.X (the carry, bit 32), SHF.R.U64 (>>
+# l) = q, and one IMAD, x = q * c + (y + start), the add y + start beside
+# the division: 6 instructions, each at least the 4 cycles a fixed-latency
+# integer result takes to reach the next.  (Where ptxas adds y by an IADD3
+# of its own H's chain is 7; B's and D's SASS chain is 15: SHF, ISETP,
+# SEL, then ptxas's division IMAD.HI, IMAD.MOV, IMAD, ISETP, IADD, ISETP,
+# IADD, LOP3, IMAD.MOV, IMAD, and the IMAD.IADD and IMAD of the update.)
+CHAIN_CYCLES = 6 * 4
 H, W = 768, 512           # the reference geometry
 HYPER_CKPT = os.path.join(ROOT, "checkpoints",
                           "hp_scale_l0.01.params.msgpack")
@@ -372,6 +381,50 @@ def encode_name(mangled: str) -> str:
             f"{('global', 'u16', 'staged')[int(m.group(3))]}>")
 
 
+def dense_name(mangled: str) -> str:
+    """'rans_encode_dense_kernel<int8|int32, global|staged>' for an
+    instance of kernel H's template, else ''."""
+    m = re.search(r"rans_encode_dense_kernelI([ai])Li([02])E", mangled)
+    if not m:
+        return ""
+    sym = "int8" if m.group(1) == "a" else "int32"
+    tab = "global" if m.group(2) == "0" else "staged"
+    return f"rans_encode_dense_kernel<{sym}, {tab}>"
+
+
+def check_dense_sass(fn: str, chunk: str) -> None:
+    """A kernel H instance: its step loop (the backward branch with the
+    most STG, two a step: the word and the flag) holds no MUFU (its
+    division is a magic number's multiply, not ptxas's reciprocal-based
+    division, which the block's own index still uses once); one barrier
+    (after the table copy) in a staged instance and none in a global one;
+    a staged one reads its table in shared memory and makes no generic
+    load."""
+    name = dense_name(fn)
+    ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk)
+    counts = {op: ops.count(op) for op in ("BAR", "LDS", "LD", "LDG", "STG",
+                                           "MUFU")}
+    insts = [(int(a, 16), txt) for a, txt in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+    loops = [(0, [])]
+    for at, txt in insts:
+        tgt = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", txt)
+        if tgt and int(tgt.group(1), 16) < at:
+            body = [x for a, x in insts if int(tgt.group(1), 16) <= a <= at]
+            stores = sum(bool(re.search(r"(?:^|\s)STG", x)) for x in body)
+            loops.append((stores // 2, body))
+    steps, body = max(loops, key=lambda lp: (lp[0], len(lp[1])))
+    mufu = sum(bool(re.search(r"(?:^|\s)MUFU", x)) for x in body)
+    log(f"  SASS {name}: {counts}; step loop: {steps} steps, "
+        f"{len(body) / max(steps, 1):.1f} instructions a step, MUFU {mufu}")
+    staged = name.endswith("staged>")
+    if not steps or mufu or counts["BAR"] != int(staged) or (staged and (
+            counts["LD"] or not counts["LDS"])):
+        raise AssertionError(f"{fn}: no step loop, a MUFU in it (a "
+                             f"division), not {int(staged)} barriers, or "
+                             f"generic loads in a staged instance")
+
+
 def check_encode_sass(fn: str, chunk: str) -> None:
     """An encode instance: no barrier between its first and last ballot
     (VOTE, only in the step loop); one barrier after the table copy
@@ -424,6 +477,7 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
             short = (f"{CONV_KERNEL}<WM={tile.group(1)}, MF={tile.group(2)}, "
                      f"NF={tile.group(3)}> in {src}.cu"
                      if tile else decode_name(name) or encode_name(name) or
+                     dense_name(name) or
                      re.search(r"[a-z][a-z_]*kernel", name)[0])
             log(f"  ptxas {short}: {line.split(':', 1)[-1].strip()}")
     from simple_image_compression_network_tpu_torch import _build
@@ -434,9 +488,13 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         return
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120, check=True)
-    n_conv = n_dec = n_enc = 0
+    n_conv = n_dec = n_enc = n_dense = 0
     for chunk in res.stdout.split("Function : ")[1:]:
         fn = chunk.split("\n", 1)[0].strip()
+        if dense_name(fn):
+            n_dense += 1
+            check_dense_sass(fn, chunk)
+            continue
         if encode_name(fn):
             n_enc += 1
             check_encode_sass(fn, chunk)
@@ -462,13 +520,15 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         if counts["IMMA"] + counts["IGMMA"] == 0 or counts["IDP4A"]:
             raise AssertionError(f"{fn}: no int8 tensor-core instruction, "
                                  f"or IDP4A left")
-    if not n_conv or n_dec != 4 or n_enc != 4:
-        raise AssertionError(f"{n_conv} conv, {n_dec} decode and {n_enc} "
-                             f"encode kernel instances in the library's SASS")
+    if not n_conv or n_dec != 4 or n_enc != 4 or n_dense != 4:
+        raise AssertionError(f"{n_conv} conv, {n_dec} decode, {n_enc} "
+                             f"compact encode and {n_dense} dense encode "
+                             f"kernel instances in the library's SASS")
     log(f"SASS: {n_conv} conv kernel instances, each with int8 tensor-core "
         f"instructions and no IDP4A; {n_dec} decode kernel instances, each "
         f"with one barrier a step; {n_enc} compact encode instances, none "
-        f"with a barrier in its step loop")
+        f"with a barrier in its step loop; {n_dense} dense encode "
+        f"instances, none with a MUFU")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -745,25 +805,83 @@ def check_kernels(rng, cdfs: np.ndarray, dev) -> dict:
             syms, (lc,), t, n, errs, ("rans_encode", "rans_decode"))
         log(f"kernels B, C: S={s} t={t} N={n} bit-exact, "
             f"{int(counts.sum())} words")
-        # kernel H on the same symbols: against its plain version, and its
-        # assembled words against kernel B's over each stream's count
-        emits, needs, x_fin = cuda_rans.encode_dense(syms, lc)
-        ref = cuda_rans.encode_dense_plain(syms.cpu(), lc.cpu())
-        for what, g, r in zip(("words", "flags", "final states"),
-                              (emits, needs, x_fin), ref):
-            errs["rans_encode_dense"] = max(
-                errs["rans_encode_dense"],
-                require_equal(f"kernel H S={s} t={t} N={n} {what}", g, r))
-        words_h, counts_h = cuda_rans.encode_batch(syms, lc)
-        words_b, counts_b = cuda_rans.encode_batch_compact(syms, lc)
-        require_equal("kernel H counts == kernel B's", counts_h, counts_b)
-        for j in range(s):
-            require_equal(f"kernel H words == kernel B's, stream {j}",
-                          words_h[j, :counts_h[j]] & 0xFFFF,
-                          words_b[j, :counts_b[j]].to(torch.int64) & 0xFFFF)
-        log(f"kernel H: S={s} t={t} N={n} bit-exact, words and counts == "
-            f"kernel B's")
     return errs
+
+
+# Kernel H's cases: (tag, S, t, N, rows): the int8 latent's shape, a ragged
+# lane count (its last block of lanes part empty), more lanes than one
+# block may hold threads (the first kernel H refused N > 1024), enough
+# streams for blocks of 8 stream rows (the last one part empty), and the
+# latent's rows with the last entry 65,535, which have no packed layout
+# and take the global instance.
+DENSE_CASES = [("int8 latent", 16, 96, 384, "latent"),
+               ("ragged", 3, 40, 200, "latent"),
+               ("N=1100", 2, 24, 1100, "latent"),
+               ("stream rows", 102, 24, 384, "latent"),
+               ("global instance", 4, 40, 384, "last 65535")]
+
+
+def check_dense(rng, cdfs: np.ndarray, dev, errs: dict) -> None:
+    """Kernel H against its plain version, bit for bit, on int8 and int32
+    symbols at each of ``DENSE_CASES``, launched alone on outputs filled
+    with a pattern (every emit, flag and final state is written) and
+    through the wrapper, its instance checked; at the first two shapes
+    ``encode_batch``'s words and counts == kernel B's."""
+    from simple_image_compression_network_tpu_torch import _build
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    from simple_image_compression_network_tpu_torch.codec.int_codec import (
+        _lane_cdf)
+    for tag, s, t, n, rows in DENSE_CASES:
+        table = np.ascontiguousarray(_lane_cdf(cdfs, n), np.int32)
+        syms8 = torch.from_numpy(lane_symbols(rng, table, s, t)).to(dev)
+        if rows != "latent":
+            table[:, -1] = 65535   # the escape symbol (128) is never coded
+        lc = torch.from_numpy(table).to(dev)
+        tb = cuda_rans.encode_dense_table(lc)
+        plan = cuda_rans.dense_plan(s, n, table.shape[1],
+                                    tb[2] == cuda_rans.ENC_STAGED,
+                                    _build.sm_count(lc.device.index))
+        want = "global" if rows != "latent" else "staged"
+        inst = "staged" if tb[2] == cuda_rans.ENC_STAGED else "global"
+        if inst != want or (tag == "stream rows" and not s % plan.streams):
+            raise AssertionError(f"kernel H {tag}: {inst} instance, "
+                                 f"{plan.streams} streams a block")
+        ref = cuda_rans.encode_dense_plain(syms8.cpu(), lc.cpu())
+        for syms in (syms8, syms8.to(torch.int32)):
+            what = f"kernel H {tag} S={s} t={t} N={n} {syms.dtype}"
+            out = (torch.full((s, t, n), 0x5A5A5A5A, dtype=torch.int32,
+                              device=dev),
+                   torch.ones((s, t, n), dtype=torch.bool, device=dev),
+                   torch.full((s, n), -7, dtype=torch.int32, device=dev))
+            out[1].view(torch.uint8).fill_(0xA5)
+            got = cuda_rans._encode_dense(syms, lc, tb, out)
+            wrapped = cuda_rans.encode_dense(syms, lc)
+            torch.cuda.synchronize()
+            for name, g, w, r in zip(("words", "flags", "final states"),
+                                     got, wrapped, ref):
+                if name == "flags":   # a written flag is 0 or 1
+                    g, w = g.view(torch.uint8), w.view(torch.uint8)
+                errs["rans_encode_dense"] = max(
+                    errs["rans_encode_dense"],
+                    require_equal(f"{what} {name} on filled outputs", g, r),
+                    require_equal(f"{what} {name}", w, r))
+        if rows == "latent" and n <= 384:
+            words_h, counts_h = cuda_rans.encode_batch(syms8, lc)
+            words_b, counts_b = cuda_rans.encode_batch_compact(syms8, lc)
+            require_equal("kernel H counts == kernel B's", counts_h, counts_b)
+            for j in range(s):
+                require_equal(f"kernel H words == kernel B's, stream {j}",
+                              words_h[j, :counts_h[j]] & 0xFFFF,
+                              words_b[j, :counts_b[j]].to(torch.int64)
+                              & 0xFFFF)
+        log(f"kernel H {tag}: S={s} t={t} N={n} L+1={table.shape[1]}, "
+            f"{plan.blocks} blocks of {cuda_rans.DENSE_LANES} lanes x "
+            f"{plan.streams} "
+            f"stream(s), {inst} instance "
+            f"({plan.smem} bytes of shared memory), int8 and int32 symbols "
+            f"bit-exact alone on filled outputs and through the wrapper"
+            + (", words and counts == kernel B's"
+               if rows == "latent" and n <= 384 else ""))
 
 
 def layer_case(rng, batch: int, layer, dev, halo=(False, False)) -> dict:
@@ -1003,8 +1121,9 @@ def chain_bound_ms(t: int) -> float:
 
 
 def bound_by(byte_bound: float, chain_bound: float) -> str:
-    """Which of an encoder's two bounds is its bound."""
-    return "chain" if chain_bound >= byte_bound else "bytes"
+    """Which of an encoder's two bounds is its bound: "bytes", or
+    "operations", the chain of its t dependent steps."""
+    return "operations" if chain_bound >= byte_bound else "bytes"
 
 
 def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
@@ -1066,6 +1185,63 @@ def time_rans(enc, dec, enc_plain, dec_plain, syms, tables, t: int,
     out["dec_bound"] = dec_bytes / PEAK_BYTES * 1e3
     out["shape"] = f"S={s} t={t} N={n} L+1={table.shape[1]}"
     out["n_words"] = n_words
+    return out
+
+
+def time_dense(syms, lc, plain: bool) -> dict:
+    """Kernel H at one shape: device time of a call that launches it alone
+    (table layouts and outputs made ahead, held equal to the wrapper
+    first) on the int8 symbols and on an int32 copy, the wrapper's time a
+    call, ``encode_batch``'s whole call and ``encode_batch_compact``'s
+    beside it, the plain version (if ``plain``), and the bounds: the bytes
+    it must move (1-byte symbols and the int32 table read once; the int32
+    words, the flag bytes and the final states written once) and its chain
+    of t steps."""
+    from simple_image_compression_network_tpu_torch import _build
+    from simple_image_compression_network_tpu_torch.codec import cuda_rans
+    s, t, n = syms.shape
+    tb = cuda_rans.encode_dense_table(lc)
+    plan = cuda_rans.dense_plan(s, n, lc.shape[1],
+                                tb[2] == cuda_rans.ENC_STAGED,
+                                _build.sm_count(lc.device.index))
+    syms32 = syms.to(torch.int32)
+    out = {"shape": f"S={s} t={t} N={n} L+1={lc.shape[1]}",
+           "instance": "staged" if tb[2] == cuda_rans.ENC_STAGED
+           else "global",
+           "blocks": plan.blocks, "lanes": cuda_rans.DENSE_LANES,
+           "streams": plan.streams}
+    for key, sy in (("ms", syms), ("ms_int32", syms32)):
+        hout = tuple(torch.empty_like(o)
+                     for o in cuda_rans.encode_dense(sy, lc))
+        for what, g, r in zip(("words", "flags", "final states"),
+                              cuda_rans._encode_dense(sy, lc, tb, hout),
+                              cuda_rans.encode_dense(sy, lc)):
+            require_equal(f"kernel H launched alone {sy.dtype} {what}", g, r)
+        out[key] = kernel_ms(lambda: cuda_rans._encode_dense(sy, lc, tb, hout))
+    out["wrapper_ms"] = cuda_ms(lambda: cuda_rans.encode_dense(syms, lc), 20)
+    out["batch_ms"] = cuda_ms(lambda: cuda_rans.encode_batch(syms, lc), 20)
+    out["compact_ms"] = cuda_ms(
+        lambda: cuda_rans.encode_batch_compact(syms, lc), 20)
+    out["plain"] = (cuda_ms(lambda: cuda_rans.encode_dense_plain(syms, lc), 3)
+                    if plain else None)
+    out["per_step_us"] = out["ms"] * 1e3 / t
+    out["byte_bound"] = ((syms.numel() + 4 * lc.numel()     # syms, table
+                          + 5 * syms.numel() + 4 * s * n)   # words, flags,
+                         / PEAK_BYTES * 1e3)                # x_fin
+    out["chain_bound"] = chain_bound_ms(t)
+    out["bound"] = max(out["byte_bound"], out["chain_bound"])
+    out["bound_by"] = bound_by(out["byte_bound"], out["chain_bound"])
+    log(f"kernel H {out['shape']}: {out['ms']:.4f} ms on the card on int8 "
+        f"symbols, {out['ms_int32']:.4f} on int32 ({out['per_step_us']:.3f} "
+        f"us a step, {out['per_step_us'] * BOOST_HZ / 1e6:.0f} cycles at the "
+        f"boost clock; {plan.blocks} blocks of {cuda_rans.DENSE_LANES} "
+        f"lanes x "
+        f"{plan.streams} stream(s), "
+        f"{out['instance']} instance; {out['bound'] / out['ms']:.1%} of its "
+        f"bound {out['bound']:.5f} ({out['bound_by']}; bytes "
+        f"{out['byte_bound']:.5f}, chain {out['chain_bound']:.5f})); wrapper "
+        f"{out['wrapper_ms']:.4f} ms a call"
+        + (f", plain {out['plain']:.3f}" if plain else ""))
     return out
 
 
@@ -1145,32 +1321,16 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                    cuda_rans.decode_ctx_plain, torch.from_numpy(syms).to(dev),
                    (torch.from_numpy(y_table).to(dev),
                     torch.from_numpy(ctx).to(dev)), t, n, 4, 4)
-    # H at the int8 latent's shapes (the same symbols, as int32: the kernel
-    # reads int32, so the wrapper's cast is not timed)
-    s, t, n = s8, t8, n8
-    syms = torch.from_numpy(lane_symbols(rng, lane_cdf_int8, s, t)).to(dev)
-    syms = syms.to(torch.int32)
+    # H at the int8 latent's shapes, B = 2 (S = 16) and a serving batch of
+    # B = 32 (S = 256), on int8 symbols as the main path gives them
     lc = torch.from_numpy(lane_cdf_int8).to(dev)
-    hout = tuple(torch.empty_like(o) for o in cuda_rans.encode_dense(syms, lc))
-    for what, g, r in zip(("words", "flags", "final states"),
-                          cuda_rans._encode_dense(syms, lc, hout),
-                          cuda_rans.encode_dense(syms, lc)):
-        require_equal(f"kernel H launched alone {what}", g, r)
-    h = {"ms": kernel_ms(lambda: cuda_rans._encode_dense(syms, lc, hout)),
-         "wrapper_ms": cuda_ms(lambda: cuda_rans.encode_dense(syms, lc), 20),
-         "plain": cuda_ms(lambda: cuda_rans.encode_dense_plain(syms, lc), 3),
-         "byte_bound": (4 * syms.numel() + 4 * lc.numel()    # syms, table
-                        + 5 * syms.numel() + 4 * s * n)      # words, flags,
-         / PEAK_BYTES * 1e3,                                 # x_fin
-         "chain_bound": chain_bound_ms(t)}
-    h["bound"] = max(h["byte_bound"], h["chain_bound"])
-    h["bound_by"] = bound_by(h["byte_bound"], h["chain_bound"])
-    log(f"kernel H S={s} t={t} N={n}: {h['ms']:.4f} ms on the card "
-        f"({h['ms'] * 1e3 / t:.3f} us a step; wrapper {h['wrapper_ms']:.4f} "
-        f"ms a call, plain {h['plain']:.3f}, bound {h['bound']:.5f} "
-        f"({h['bound_by']}; bytes {h['byte_bound']:.5f}, chain "
-        f"{h['chain_bound']:.5f})); kernel B {bc['enc_ms']:.4f} ms at the "
-        f"same shape")
+    h, h256 = (time_dense(torch.from_numpy(lane_symbols(
+        rng, lane_cdf_int8, s, t8)).to(dev), lc, plain=s == s8)
+        for s in (s8, 256))
+    log(f"kernel H: encode_batch (H, then device_rans.assemble_stream) "
+        f"{h['batch_ms']:.4f} ms a call at S={s8}, {h256['batch_ms']:.4f} "
+        f"at S=256; encode_batch_compact (kernel B) {h['compact_ms']:.4f} "
+        f"and {h256['compact_ms']:.4f} (CUDA events, host included)")
     # the global-memory instance of C, once, at an oversize lane table
     lane_big = np.ascontiguousarray(_lane_cdf(cdfs, 1024), np.int32)
     syms = torch.from_numpy(lane_symbols(rng, lane_big, 2, 96)).to(dev)
@@ -1243,8 +1403,8 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
                 "that launches the kernel alone); wrapper_ms: CUDA events "
                 "around the wrapper, host included")
     enc_unit = (dec_unit + f"; bound_ms: the larger of the byte bound and "
-                f"the chain bound, t steps of {CHAIN_CYCLES} cycles at "
-                f"{BOOST_HZ / 1e9} GHz")
+                f"the chain bound, t dependent steps of {CHAIN_CYCLES} "
+                f"cycles at {BOOST_HZ / 1e9} GHz (bound_by 'operations')")
     a_path = {k: v for k, v in launches["conv3x3_s1_int8"].items()
               if k != "pallas"}
     return [
@@ -1278,10 +1438,19 @@ def time_kernels(rng, cdfs, codec, batch: int, dev, errs: dict,
         entry("rans_encode_dense", "rans_encode.cu",
               "codec/pallas_rans.py:413", errs["rans_encode_dense"],
               h["ms"], h["plain"], h["bound"],
-              f"one launch, {bc['shape']} (int8 latent); {enc_unit}",
-              by=h["bound_by"], per_step_us=h["ms"] * 1e3 / t,
-              wrapper_ms=h["wrapper_ms"], byte_bound_ms=h["byte_bound"],
-              chain_bound_ms=h["chain_bound"]),
+              f"one launch, {h['shape']} (int8 latent, int8 symbols); "
+              f"{enc_unit}", by=h["bound_by"],
+              per_step_us=h["per_step_us"], wrapper_ms=h["wrapper_ms"],
+              byte_bound_ms=h["byte_bound"],
+              chain_bound_ms=h["chain_bound"], int32_ms=h["ms_int32"],
+              instance=h["instance"], blocks=h["blocks"], lanes=h["lanes"],
+              streams=h["streams"],
+              encode_batch_ms=h["batch_ms"],
+              encode_batch_compact_ms=h["compact_ms"],
+              serving_batch={k: h256[k] for k in (
+                  "shape", "ms", "ms_int32", "per_step_us", "wrapper_ms",
+                  "batch_ms", "compact_ms", "bound", "bound_by",
+                  "byte_bound", "chain_bound", "blocks", "streams")}),
         entry("rans_encode", "rans_encode.cu", "codec/pallas_rans.py:514",
               errs["rans_encode"], bc["enc_ms"], bc["enc_plain"],
               bc["enc_bound"],
@@ -3267,12 +3436,20 @@ def sharded_path(seed: int, batch: int, golden: dict, hyper_codecs: dict,
     net_ref = golden["net"](golden["x"]).cpu()
     require_equal("IntCodecNet forward == golden", net_ref, x_ref)
     hyper = hyper_golden(seed, batch, hyper_codecs)
+    from simple_image_compression_network_tpu_torch.codec import hyper_codec
+    c16 = hyper_codec.HyperCodec.from_checkpoint(
+        HYPER_CKPT, device=hyper_codecs["scale"].device, dtype=torch.bfloat16)
+    x16 = torch.from_numpy(hyper_images(seed, batch)).to(c16.device)
+    blobs16 = c16.compress_batch(x16)
+    x16_hat, y16_hat = c16.decompress_batch(blobs16)
+    gold16 = {"blobs": blobs16, "x_hat": x16_hat, "y_hat": y16_hat}
     counts, ms, hyper_ms = {}, {}, {}
     for n in sizes:
         t0 = time.perf_counter()
         ranks = distributed.spawn_ranks(
             sharded_rank, n, backend=backend, timeout_s=SHARDED_TIMEOUT_S,
-            args=(seed, batch, {f: g["blobs"] for f, g in hyper.items()}))
+            args=(seed, batch, {**{f: g["blobs"] for f, g in hyper.items()},
+                                "bf16 scale": blobs16}))
         wall = time.perf_counter() - t0
         for res in ranks:
             check_rank(n, res, golden["blobs"], backend)
@@ -3318,6 +3495,9 @@ def sharded_path(seed: int, batch: int, golden: dict, hyper_codecs: dict,
         got, hyper_ms[n] = check_hyper_group(
             n, [r["hyper"] for r in ranks], hyper, hyper_codecs, backend)
         counts.update(got)
+        if n <= 2:
+            counts[f"sharded bf16 scale {backend} {n}"] = check_bf16_group(
+                n, [r["hyper"] for r in ranks], c16, gold16, backend)
     where = ("ranks time-sliced on one card (gloo)" if backend == "gloo"
              else f"a card a rank ({backend})")
     for n, (enc, dec) in ms.items():
@@ -3479,7 +3659,45 @@ def sharded_hyper_rank(seed: int, batch: int, golden_blobs: dict) -> dict:
                     mesh.device), mesh)
         res["stages"]["checks"] = time.perf_counter() - t1
         out[fam] = res
+    if n <= 2 and "bf16 scale" in golden_blobs:
+        out["bf16 scale"] = sharded_bf16_rank(x, mesh,
+                                              golden_blobs["bf16 scale"])
     return out
+
+
+def sharded_bf16_rank(x, mesh, golden_blobs: list) -> dict:
+    """The scale model in bf16 through ``ShardedHyperCodec`` on this
+    rank's mesh: one counted round (launches a direction, routes) and the
+    single-device bf16 codec's containers decoded; rank 0 keeps the
+    gathered tiles."""
+    import torch.distributed as dist
+    from simple_image_compression_network_tpu_torch.codec import hyper_codec
+    from simple_image_compression_network_tpu_torch.parallel import (
+        hyper_sharded, spatial)
+    codec = hyper_codec.HyperCodec.from_checkpoint(
+        HYPER_CKPT, device=mesh.device, dtype=torch.bfloat16)
+    sh = hyper_sharded.ShardedHyperCodec(codec, mesh)
+    sh.decompress_batch(sh.compress_batch(x))                   # warm-up
+    torch.cuda.synchronize()
+    sh.routes.update(sharded=0, fallback=0)
+    res = {"rank": dist.get_rank()}
+    for direction, expected in (("encode", SHARDED_HYPER_ENC),
+                                ("decode", SHARDED_HYPER_DEC)):
+        reset_counts()
+        if direction == "encode":
+            blobs = sh.compress_batch(x)
+        else:
+            x_hat, y_hat = sh.decompress_batch(blobs)
+        torch.cuda.synchronize()
+        res[direction] = rank_counts(expected)
+    res["routes"], res["blobs"] = dict(sh.routes), blobs
+    x1, y1 = sh.decompress_batch(golden_blobs)
+    whole = {k: spatial.gather_image(t, mesh).cpu().numpy()
+             for k, t in (("x_hat", x_hat), ("y_hat", y_hat),
+                          ("x_single", x1), ("y_single", y1))}
+    if res["rank"] == 0:
+        res.update(whole)
+    return res
 
 
 def check_hyper_rank(n: int, fam: str, res: dict, backend: str) -> None:
@@ -3611,6 +3829,64 @@ def check_hyper_outputs(n: int, fam: str, codec, gold: dict, ranks: list,
         + f"; x_hat max |diff| {x_err} (sharded containers), {x_single} "
         f"(single-device containers) <= {HYPER_X_TOL}; corrupt container "
         f"raised on every rank")
+
+
+BF16_X_TOL = 2.0 ** -7    # x_hat in [0, 1]: bf16's spacing just below 1
+
+
+def check_bf16_group(n: int, ranks: list, c16, gold: dict,
+                     backend: str) -> dict:
+    """The bf16 scale model's sharded round against the single-device bf16
+    codec ``c16`` (``gold``: its containers, y_hat and x_hat): on every
+    rank the sharded route and the launches of SHARDED_HYPER_ENC / DEC
+    with no plain run; the sharded containers decoded by ``c16`` and
+    ``c16``'s decoded by the sharded codec, y_hat exactly and x_hat within
+    ``BF16_X_TOL``; the containers byte-identical, or the symbols that
+    differ counted (printed).  Returns the launches summed over ranks."""
+    tag = f"sharded bf16 scale ({backend}) {n} rank(s)"
+    for res in ranks:
+        got = res["bf16 scale"]
+        if got["routes"] != {"sharded": 2, "fallback": 0}:
+            raise AssertionError(f"{tag}, rank {got['rank']}: routes "
+                                 f"{got['routes']}")
+        for direction, expected in (("encode", SHARDED_HYPER_ENC),
+                                    ("decode", SHARDED_HYPER_DEC)):
+            if got[direction]["launches"] != expected or \
+                    got[direction]["plain"]:
+                raise AssertionError(f"{tag} {direction}: launches "
+                                     f"{got[direction]}")
+    r0 = ranks[0]["bf16 scale"]
+    if any(res["bf16 scale"]["blobs"] != r0["blobs"] for res in ranks):
+        raise AssertionError(f"{tag}: ranks returned different containers")
+    dev = gold["y_hat"].device
+    x_s1, y_s1 = c16.decompress_batch(r0["blobs"])
+    require_identical(f"{tag}: sharded containers decoded by the single-"
+                      f"device bf16 codec, y_hat == the sharded decode's",
+                      y_s1, torch.from_numpy(r0["y_hat"]).to(dev))
+    require_identical(f"{tag}: single-device bf16 containers decoded "
+                      f"sharded, y_hat == the single-device decode's",
+                      torch.from_numpy(r0["y_single"]).to(dev),
+                      gold["y_hat"])
+    errs = {k: (torch.from_numpy(r0[k]).to(dev) - ref).abs().max().item()
+            for k, ref in (("x_hat", x_s1), ("x_single", gold["x_hat"]))}
+    errs["x_hat vs single"] = (torch.from_numpy(r0["x_hat"]).to(dev)
+                               - gold["x_hat"]).abs().max().item()
+    if max(errs.values()) > BF16_X_TOL:
+        raise AssertionError(f"{tag}: x_hat max |diff| {errs} > "
+                             f"{BF16_X_TOL}")
+    same = r0["blobs"] == gold["blobs"]
+    n_sym = int((y_s1 != gold["y_hat"]).sum())
+    log(f"{tag}: routes {r0['routes']} on every rank, launches a rank "
+        f"encode {r0['encode']['launches']}, decode "
+        f"{r0['decode']['launches']}, plain runs 0; cross-decoding with the "
+        f"single-device bf16 codec exact both ways; x_hat max |diff| "
+        f"{errs} <= {BF16_X_TOL}; containers "
+        + ("byte-identical" if same else
+           f"differ: {n_sym} y symbols differ from the single-device "
+           f"codec's")
+        + f" ({sum(len(b) for b in r0['blobs'])} bytes)")
+    return {k: sum(r["bf16 scale"][d]["launches"][k] for r in ranks
+                   for d in ("encode", "decode")) for k in HYPER_ROUND}
 
 
 def check_hyper_group(n: int, ranks: list, gold: dict, codecs: dict,
@@ -4333,6 +4609,7 @@ def main() -> int:
 
     with phase("kernels against their plain versions"):
         errs = check_kernels(rng, cdfs, dev)
+        check_dense(rng, cdfs, dev, errs)
         check_lane_edges(rng, cdfs, dev, errs)
         check_hyper_kernels(rng, codec, args.batch, dev, errs)
         check_layers(rng, args.batch, dev, errs)

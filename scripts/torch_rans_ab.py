@@ -11,7 +11,12 @@ latent's shape (S = 16, t = 96, N = 384, rows of 130, the static latent
 CDFs) and at the hyper-latent z's (S = 2, t = 48, N = 256, rows of 129, the
 trained hyperprior's factorized CDFs), kernels E and D at the hyper y shape
 (S = 16, t = 96, N = 384, 64 scale-bin rows of 257, uniform contexts), and
-kernel H at the int8 latent's shape: the kernel's device time and per step
+kernel H at the int8 latent's shape for B = 2 (S = 16) and B = 32 (S = 256),
+on int8 symbols where ROOT's kernel reads them and on int32, with its
+wrapper and ``encode_batch`` on int8, where ROOT picks its streams a block
+at 1, 2, 4 and 8 of them, and at S = 16 for t = 24, 96 and 192 with the
+time a step and the intercept of a line through them: the kernel's device
+time and per step
 (CUDA events around 20 calls queued behind a spin kernel, after one
 warm-up, of a call that launches the kernel alone with its outputs and
 table layout made ahead: the private launcher ``cuda_rans._decode``,
@@ -224,21 +229,98 @@ def main() -> int:
         encode_alone(tag, cuda_rans.encode_batch_compact_ctx,
                      (syms, yt, ctx), outs[:2], kernel, t)
 
-    def encode_h(tag, syms, lc):
-        s, t, n = syms.shape
-        outs = tuple(torch.empty_like(o)
-                     for o in cuda_rans.encode_dense(syms, lc))
+    def h_kernel(sy, lc, outs):
+        """A call that launches kernel H alone on ``sy`` into ``outs``:
+        ROOT's private launcher with its table layouts made ahead, else its
+        C entry point."""
+        s, t, n = sy.shape
+        if hasattr(cuda_rans, "encode_dense_table"):
+            tb = cuda_rans.encode_dense_table(lc)
+            return lambda: cuda_rans._encode_dense(sy, lc, tb, outs)
         if hasattr(cuda_rans, "_encode_dense"):
-            def kernel():
-                cuda_rans._encode_dense(syms, lc, outs)
-        else:
+            return lambda: cuda_rans._encode_dense(sy, lc, out=outs)
+        return lambda: _build.check(lib.sicn_rans_encode_dense(
+            sy.data_ptr(), lc.data_ptr(), *[o.data_ptr() for o in outs], s,
+            t, n, lc.shape[1], stream), "rans encode dense")
+
+    def encode_h(tag, syms, lc):
+        """Kernel H alone on the int8 symbols where ROOT's kernel reads
+        int8 (it has ``encode_dense_table``), and on an int32 copy made
+        ahead (the first kernel H read int32 only, its wrapper cast int8
+        first); then its wrapper and ``encode_batch`` on the int8 symbols
+        as the main path gives them; where ROOT picks kernel H's streams
+        a block (``dense_streams``), the kernel on int8 at 1, 2, 4 and 8
+        streams a block through ROOT's C entry point."""
+        s, t, n = syms.shape
+        new = hasattr(cuda_rans, "encode_dense_table")
+        for sy in (syms, syms.to(torch.int32)) if new else (
+                syms.to(torch.int32),):
+            outs = tuple(torch.empty_like(o)
+                         for o in cuda_rans.encode_dense(sy, lc))
+            encode_alone(f"{tag} {str(sy.dtype)[6:]} symbols",
+                         cuda_rans.encode_dense, (sy, lc), outs,
+                         h_kernel(sy, lc, outs), t)
+        w = cuda_ms(lambda: cuda_rans.encode_dense(syms, lc))
+        eb = cuda_ms(lambda: cuda_rans.encode_batch(syms, lc))
+        print(f"{tag} {tuple(syms.shape)} [{root}, {card}]: wrapper on int8 "
+              f"symbols {w:.4f} ms a call, encode_batch {eb:.4f} ms a call",
+              flush=True)
+        if not hasattr(cuda_rans, "dense_streams"):
+            return
+        ref = cuda_rans.encode_dense(syms, lc)
+        outs = tuple(torch.empty_like(o) for o in ref)
+        packed = cuda_rans.stage_lane_packed(lc)
+        for rows in (1, 2, 4, 8):
             def kernel():
                 _build.check(lib.sicn_rans_encode_dense(
-                    syms.data_ptr(), lc.data_ptr(),
+                    syms.data_ptr(), packed.data_ptr(), None,
                     *[o.data_ptr() for o in outs], s, t, n, lc.shape[1],
-                    stream), "rans encode dense")
-        encode_alone(tag, cuda_rans.encode_dense, (syms, lc), outs, kernel,
-                     t)
+                    rows, 1, cuda_rans.ENC_STAGED, stream),
+                    "rans encode dense")
+            kernel()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs, ref))
+            ok_and(same, f"{tag} at {rows} streams a block differs")
+            k = kernel_ms(kernel)
+            print(f"{tag} {tuple(syms.shape)} int8, blocks of 32 lanes x "
+                  f"{rows} stream(s) [{root}, {card}]: kernel {k:.4f} ms "
+                  f"({k * 1e3 / t:.3f} us a step)"
+                  f"{'' if same else ', DIFFERS'}", flush=True)
+
+    def h_per_step(tag, lc, s):
+        """Kernel H alone at S = ``s`` for t = 24, 96 and 192 (int8 symbols
+        where ROOT reads them, else int32): the slope of a line through
+        the three times is its time a step, the intercept what a call
+        costs besides."""
+        dt = torch.int8 if hasattr(cuda_rans, "encode_dense_table") \
+            else torch.int32
+        steps = (24, 96, 192)
+        times = []
+        for t in steps:
+            sy = torch.from_numpy(lane_syms(rng, lc.cpu().numpy(), s,
+                                            t)).to(dev).to(dt)
+            ref = cuda_rans.encode_dense(sy, lc)
+            outs = tuple(torch.empty_like(o) for o in ref)
+            kernel = h_kernel(sy, lc, outs)
+            kernel()
+            torch.cuda.synchronize()
+            ok_and(all(torch.equal(a, b) for a, b in zip(outs, ref)),
+                   f"{tag} t={t}: the kernel launched alone differs")
+            times.append(kernel_ms(kernel))
+        slope, icept = np.polyfit(np.array(steps, np.float64),
+                                  np.array(times), 1)
+        print(f"{tag} S={s} t={steps} {str(dt)[6:]} symbols [{root}, "
+              f"{card}]: kernel {', '.join(f'{m:.4f}' for m in times)} ms; "
+              f"{slope * 1e3:.4f} us a step ({slope * 1.98e6:.0f} cycles at "
+              f"the 1.98 GHz boost clock), intercept {icept * 1e3:.2f} us",
+              flush=True)
+
+    def ok_and(cond, msg):
+        nonlocal ok
+        if not cond:
+            print(msg)
+            ok = False
+        return ok
 
     lane_cases = []
     for tag, table, s, t in (
@@ -267,7 +349,12 @@ def main() -> int:
         encode_b(f"kernel B, {tag}", syms_b, lc)
     encode_d("kernel D, hyper y", syms_d, yt, ctx_d)
     tag, syms_b, lc = lane_cases[0]
-    encode_h(f"kernel H, {tag}", syms_b.to(torch.int32), lc)
+    encode_h(f"kernel H, {tag}", syms_b, lc)
+    h_per_step(f"kernel H, {tag}", lc, syms_b.shape[0])
+    # a serving batch: B = 32 images, S = 256 streams of the int8 latent
+    syms_256 = torch.from_numpy(lane_syms(rng, lc.cpu().numpy(), 256,
+                                          syms_b.shape[1])).to(dev)
+    encode_h(f"kernel H, {tag} B=32", syms_256, lc)
     return 0 if ok else 1
 
 

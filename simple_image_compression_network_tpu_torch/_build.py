@@ -17,6 +17,7 @@ g++.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -44,7 +45,8 @@ _SIGNATURES = {
     "sicn_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_encode_ctx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
-    "sicn_rans_encode_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sicn_rans_encode_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
     "sicn_rans_decode_ctx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
 }
@@ -142,6 +144,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -8,7 +8,8 @@ The counterpart of the JAX package's ``codec/pallas_rans.py``:
 * ``encode_batch`` -> ``_encode_kernel`` (kernel H, launched by
   ``encode_dense``: the dense per-step words and need flags, which
   ``device_rans.assemble_stream`` compacts after the kernel, as the JAX
-  package does);
+  package does; blocks of lanes by streams, each step's division by a
+  magic number, ``dense_step``);
 * ``decode`` -> ``_decode_kernel`` (kernel C);
 * ``decode_ctx`` -> ``_decode_ctx_kernel`` (kernel E);
 * ``split_init``.
@@ -34,7 +35,7 @@ states as int32 tensors.  CDF precision is 16 (the codec's only setting).
 from __future__ import annotations
 
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -108,6 +109,13 @@ def stage_ctx_table(table: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _has_u16_layout(lane_cdf: torch.Tensor) -> bool:
+    """Every entry in [0, 2^16] and every last entry 2^16: start and freq
+    of every symbol of freq >= 1 are exact as u16 (2^16 stored as 0)."""
+    return bool(((lane_cdf >= 0) & (lane_cdf <= 65536)).all()
+                & (lane_cdf[:, -1] == 65536).all())
+
+
 def stage_lane_table_u16(lane_cdf: torch.Tensor) -> Optional[torch.Tensor]:
     """(N, L+1) lane table -> kernel B's u16 layout, flat int16 (the u16
     bit patterns): entry j of lane k at j * npad + k, lanes past N zero,
@@ -117,8 +125,7 @@ def stage_lane_table_u16(lane_cdf: torch.Tensor) -> Optional[torch.Tensor]:
     0 cannot be coded at all.  None where an entry lies outside [0, 2^16]
     or a last entry is not 2^16."""
     n, l1 = lane_cdf.shape
-    if not bool(((lane_cdf >= 0) & (lane_cdf <= 65536)).all()
-                & (lane_cdf[:, -1] == 65536).all()):
+    if not _has_u16_layout(lane_cdf):
         return None
     out = lane_cdf.new_zeros((l1, _npad(n)))
     out[:, :n] = lane_cdf.t() & 0xFFFF
@@ -394,6 +401,202 @@ encode_batch_compact_ctx.launches = 0
 encode_batch_compact_ctx.plain_runs = 0
 
 
+# --- dense-flag encode (kernel H) ------------------------------------------
+# Kernel H runs blocks of DENSE_LANES lanes by ``streams`` streams
+# (``dense_plan``).  Where the table has a u16 layout (start and freq exact
+# as u16, ``stage_lane_table_u16``) and a block's slab fits, it copies its
+# lane block's slab of the packed layout (``stage_lane_packed``: start,
+# 2^16 - freq and freq's magic number in 8 bytes) into shared memory with
+# one bulk copy; else it reads the int32 table and the magic layout
+# (``stage_lane_magic``) in global memory.  Each step divides by the magic
+# number: the functions below are the kernel's integer steps in int64
+# PyTorch ops.
+
+DENSE_LANES = 32            # csrc/rans_encode.cu:kDenseLanes, a block's lanes
+_DENSE_STATIC_SMEM = 16     # kDenseStaticSmem: the bulk copy's mbarrier
+_U32 = 0xFFFFFFFF
+
+
+def dense_shift(freq: torch.Tensor) -> torch.Tensor:
+    """l = ceil(log2 freq) of each int64 divisor in [1, 2^32) (the bit
+    length of freq - 1, as the kernel's 32 - clz(freq - 1)); 32 for freq
+    = 0, which no symbol that can be coded has."""
+    d = freq.to(torch.int64)
+    bits = torch.frexp((d - 1).clamp(min=0).to(torch.float64)).exponent
+    return torch.where(d == 0, 32, bits.to(torch.int64))
+
+
+def dense_magic(freq: torch.Tensor) -> torch.Tensor:
+    """The magic number of each divisor freq in [1, 2^32) (int64 values
+    below 2^32): m = floor(2^32 (2^l - freq) / freq) + 1 with l =
+    ``dense_shift(freq)``, Granlund and Montgomery's round-up method, so
+    that floor(y / freq) = (hi32(y * m) + y) >> l for every y < 2^32
+    (``dense_quotient``).  0 for freq = 0."""
+    d = freq.to(torch.int64)
+    l = dense_shift(d)
+    one = torch.ones_like(d)
+    num = ((one << l.clamp(max=32)) - d) << 32
+    return torch.where(d == 0, 0, num // torch.where(d == 0, one, d) + 1)
+
+
+def dense_quotient(y: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """floor(y / freq) as kernel H computes it from freq's (m, l): t =
+    hi32(y * m), taken in 16-bit halves of y so that every int64 product
+    stays below 2^49, then the 33-bit (t + y) >> l.  y, m < 2^32."""
+    t = ((y >> 16) * m + (((y & 0xFFFF) * m) >> 16)) >> 16
+    return (t + y) >> l
+
+
+def dense_step(x: torch.Tensor, start: torch.Tensor, freq: torch.Tensor,
+               m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """One step of kernel H on int64 u32 values: (word x & 0xFFFF, need,
+    the new state).  need = x > thr, thr = freq * 2^16 - 1 (2^32 - 1
+    where freq >= 2^16); y = need ? x >> 16 : x; the state y + q * (2^16
+    - freq) + start mod 2^32 with q = ``dense_quotient``, which is
+    (q << 16) + y % freq + start."""
+    thr = torch.where(freq >= 65536, _U32, ((freq << 16) - 1) & _U32)
+    need = x > thr
+    y = torch.where(need, x >> 16, x)
+    q = dense_quotient(y, m, dense_shift(freq))
+    return x & 0xFFFF, need, (y + q * (65536 - freq) + start) & _U32
+
+
+def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return (v - (v >= 2 ** 31).to(torch.int64) * 2 ** 32).to(torch.int32)
+
+
+def stage_lane_magic(lane_cdf: torch.Tensor) -> torch.Tensor:
+    """(N, L+1) lane table -> the global instance's magic layout, flat
+    int32 (u32 bit patterns): ``dense_magic`` of symbol j's freq (the
+    row's difference mod 2^32) of lane k at j * npad + k, lanes past N
+    zero."""
+    n, l1 = lane_cdf.shape
+    c = lane_cdf.to(torch.int64)
+    out = torch.zeros((l1 - 1, _npad(n)), dtype=torch.int64,
+                      device=lane_cdf.device)
+    out[:, :n] = dense_magic((c[:, 1:] - c[:, :-1]) & _U32).t()
+    return _to_int32_bits(out).reshape(-1)
+
+
+def stage_lane_packed(lane_cdf: torch.Tensor) -> Optional[torch.Tensor]:
+    """(N, L+1) lane table -> the staged instance's packed layout, (ceil(N
+    / 32), L, 32) int64: lane block c's entries are one contiguous slab (a
+    block copies it with one bulk copy), symbol j of lane 32 c + x at [c,
+    j, x], lanes past N zero.  An entry holds start in bits 0-15, c = 2^16
+    - freq in bits 16-31 and ``dense_magic(freq)`` in bits 32-63, with
+    start and freq as the u16 layout gives them (2^16 stored as 0; freq =
+    ((end - start - 1) & 0xFFFF) + 1, exact for every symbol of freq >=
+    1).  None where the table has no u16 layout
+    (``stage_lane_table_u16``)."""
+    n, l1 = lane_cdf.shape
+    if not _has_u16_layout(lane_cdf):
+        return None
+    u = lane_cdf.to(torch.int64) & 0xFFFF
+    start = u[:, :-1]
+    freq = ((u[:, 1:] - start - 1) & 0xFFFF) + 1
+    low = start | ((65536 - freq) << 16)
+    word = (_to_int32_bits(dense_magic(freq)).to(torch.int64) << 32) | low
+    nblk = -(-n // DENSE_LANES)
+    out = torch.zeros((nblk * DENSE_LANES, l1 - 1), dtype=torch.int64,
+                      device=lane_cdf.device)
+    out[:n] = word
+    return out.reshape(nblk, DENSE_LANES, l1 - 1).transpose(1, 2).contiguous()
+
+
+def dense_table_bytes(l1: int) -> int:
+    """Shared memory of kernel H's staged instance: a block's slab of the
+    packed layout, (L, 32) entries of 8 bytes.  At L+1 = 130: 33,024
+    bytes."""
+    return 8 * (l1 - 1) * DENSE_LANES
+
+
+def dense_slab_fits(l1: int) -> bool:
+    """Whether a block's slab of rows of L+1 entries fits ``SMEM_LIMIT``
+    beside the kernel's 16 bytes of static shared memory."""
+    return dense_table_bytes(l1) + _DENSE_STATIC_SMEM <= SMEM_LIMIT
+
+
+def dense_streams(n_streams: int, n_lanes: int, n_sms: int) -> int:
+    """Streams a block of kernel H: the most of 1, 2, 4 and 8 (at most S)
+    that still leave a block for every 4 of the card's ``n_sms`` SMs.  A
+    block's rows share its staged slab, so fewer blocks copy the table
+    fewer times; too few leave the SMs idle.  On one H100 at the int8
+    latent (N = 384 in 12 blocks of 32 lanes) 4 streams a block were
+    fastest at S = 16 and 8 at S = 256 (``scripts/torch_rans_ab.py``)."""
+    nblk = -(-n_lanes // DENSE_LANES)
+    best = 1
+    for g in (2, 4, 8):
+        if g <= n_streams and -(-n_streams // g) * nblk * 4 >= n_sms:
+            best = g
+    return best
+
+
+class DensePlan(NamedTuple):
+    """Kernel H's launch: ``blocks`` of 32 lanes x ``streams`` threads,
+    block g * nblk + c running lanes [32 c, 32 (c + 1)) of streams [g *
+    streams, (g + 1) * streams), masked past N and S; ``smem`` bytes of
+    shared memory; ``mode`` ENC_STAGED or ENC_GLOBAL."""
+    blocks: int
+    streams: int
+    smem: int
+    mode: int
+
+
+def dense_plan(n_streams: int, n_lanes: int, l1: int, packed: bool,
+               n_sms: int) -> DensePlan:
+    """Kernel H's grid and instance for S streams of N lanes and rows of
+    L+1 entries on a card of ``n_sms`` SMs: the staged instance where the
+    table has a packed layout (``packed``) and a block's slab fits
+    (``dense_slab_fits``), else the global one; any N and S (a stream's T
+    * N below 2^31), the last lane block and stream row masked."""
+    streams = dense_streams(n_streams, n_lanes, n_sms)
+    staged = packed and dense_slab_fits(l1)
+    return DensePlan(-(-n_streams // streams) * -(-n_lanes // DENSE_LANES),
+                     streams, dense_table_bytes(l1) if staged else 0,
+                     ENC_STAGED if staged else ENC_GLOBAL)
+
+
+def encode_dense_table(lane_cdf: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """(the table as kernel H reads it, the magic layout or None, the
+    mode): the packed layout (``ENC_STAGED``) where the table allows it
+    and its slab fits, else the table itself and the magic layout
+    (``ENC_GLOBAL``).  Layouts are made once per table tensor."""
+    if dense_slab_fits(lane_cdf.shape[1]):
+        tb = _layout(lane_cdf, "lane_packed", stage_lane_packed)
+        if tb is not None:
+            return tb, None, ENC_STAGED
+    return lane_cdf, _layout(lane_cdf, "lane_magic", stage_lane_magic), \
+        ENC_GLOBAL
+
+
+def _check_dense_table(tb, lane_cdf: torch.Tensor) -> None:
+    """``tb`` made ahead must be layouts of ``lane_cdf``'s shape for its
+    mode, 16-byte aligned on the table's device."""
+    layout, magic, mode = tb
+    n, l1 = lane_cdf.shape
+    if mode == ENC_STAGED:
+        ok = (dense_slab_fits(l1) and magic is None
+              and tuple(layout.shape) == (-(-n // DENSE_LANES), l1 - 1,
+                                          DENSE_LANES)
+              and layout.dtype == torch.int64)
+        arrays = (layout,)
+    else:
+        ok = (mode == ENC_GLOBAL and layout.shape == lane_cdf.shape
+              and layout.dtype == torch.int32 and magic is not None
+              and tuple(magic.shape) == ((l1 - 1) * _npad(n),)
+              and magic.dtype == torch.int32)
+        arrays = (layout, magic) if magic is not None else (layout,)
+    if not ok or any(t.device != lane_cdf.device or not t.is_contiguous()
+                     or t.data_ptr() % 16 for t in arrays):
+        raise ValueError(f"kernel H tables {tuple(layout.shape)} "
+                         f"{layout.dtype} in mode {mode} do not fit this "
+                         f"table")
+
+
 def encode_dense_plain(syms: torch.Tensor, lane_cdf: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of kernel H (``device_rans.encode_dense``)."""
@@ -405,18 +608,20 @@ def encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel H: the reverse state loop of S streams with dense outputs.
 
-    syms: (S, t, N) int8 or int32 symbols in [0, L); lane_cdf: (N, L+1)
-    int32 CDF row per lane.  Returns (emits (S, t, N) int32, the candidate
-    word x & 0xFFFF of every step; needs (S, t, N) bool, whether it is
-    emitted; x_fin (S, N) int32 final states, u32 bits)."""
+    syms: (S, t, N) int8 or int32 symbols in [0, L), read as they are;
+    lane_cdf: (N, L+1) int32 CDF row per lane; any N.  Returns (emits (S,
+    t, N) int32, the candidate word x & 0xFFFF of every step; needs (S, t,
+    N) bool, whether it is emitted; x_fin (S, N) int32 final states, u32
+    bits)."""
     return _encode_dense(syms, lane_cdf)
 
 
-def _encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor, out=None
+def _encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor,
+                  tb=None, out=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``encode_dense`` with ``out``, (emits, needs, x_fin), made ahead (or
-    None to make them here).  The kernel reads int32 symbols: int8 ones
-    are cast first."""
+    """``encode_dense`` with ``tb``, ``encode_dense_table(lane_cdf)``, and
+    ``out``, (emits, needs, x_fin), made ahead (or None to make them
+    here)."""
     if syms.dim() != 3 or syms.dtype not in (torch.int8, torch.int32):
         raise ValueError("syms must be (S, t, N) int8 or int32")
     s, t_steps, n = syms.shape
@@ -424,8 +629,17 @@ def _encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor, out=None
     if syms.device.type == "cpu":
         encode_dense.plain_runs += 1
         return encode_dense_plain(syms, lane_cdf)
-    syms = syms.to(torch.int32)
     _cuda_ready(syms, lane_cdf)
+    if t_steps * n >= 2 ** 31:
+        raise ValueError(f"kernel H takes t * N below 2^31 a stream, not "
+                         f"{t_steps} x {n}")
+    if tb is None:
+        tb = encode_dense_table(lane_cdf)
+    else:
+        _check_dense_table(tb, lane_cdf)
+    layout, magic, mode = tb
+    plan = dense_plan(s, n, lane_cdf.shape[1], mode == ENC_STAGED,
+                      _build.sm_count(syms.device.index))
     if out is None:
         out = (torch.empty((s, t_steps, n), dtype=torch.int32,
                            device=syms.device),
@@ -442,9 +656,11 @@ def _encode_dense(syms: torch.Tensor, lane_cdf: torch.Tensor, out=None
     lib = _build.lib()
     with torch.cuda.device(syms.device):
         err = lib.sicn_rans_encode_dense(
-            syms.data_ptr(), lane_cdf.data_ptr(), emits.data_ptr(),
+            syms.data_ptr(), layout.data_ptr(),
+            None if magic is None else magic.data_ptr(), emits.data_ptr(),
             needs.data_ptr(), x_fin.data_ptr(), s, t_steps, n,
-            lane_cdf.shape[1], torch.cuda.current_stream().cuda_stream)
+            lane_cdf.shape[1], plan.streams, syms.element_size(), mode,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rans encode dense")
     encode_dense.launches += 1
     return out

@@ -1,4 +1,5 @@
-// Kernels B and D: interleaved-rANS encode with in-kernel stream compaction.
+// Kernels B and D: interleaved-rANS encode with in-kernel stream compaction;
+// kernel H: the same recurrence with dense outputs.
 //
 // Kernel B replaces the TPU kernel codec/pallas_rans.py:_encode_compact_kernel
 // (-> _compact_encode_body, via encode_batch_compact with ctx=None) of the
@@ -12,14 +13,15 @@
 // and the words are placed by one scan of ballot counts.
 // Kernel H replaces codec/pallas_rans.py:_encode_kernel (via encode_batch):
 // pass 1 alone, writing each step's candidate word (x & 0xFFFF) and need
-// flag densely at its (s, t, k) place and the final states;
+// flag densely at its (s, t, k) place and the final states (its own
+// design, below);
 // codec/device_rans.py:assemble_stream compacts them after the kernel, as
 // the JAX package's XLA scatter does.
 // Format: codec/ilrans.py (32-bit state in [2^16, 2^32), 16-bit
 // renormalisation words, 16-bit CDF precision, <= 1 word per symbol).
 //
-// One block per stream, one thread per lane.  Pass 1, t descending, is the
-// reverse state recurrence
+// B and D: one block per stream, one thread per lane.  Pass 1, t
+// descending, is the reverse state recurrence
 //     need = (x >> 16) >= freq;  word = x & 0xFFFF;  if need: x >>= 16
 //     x = ((x / freq) << 16) + x % freq + start
 // with start and freq from the symbol's CDF row.  The stream is the 2N
@@ -65,7 +67,7 @@
 //  * Lookups one group ahead need more than 64 registers a thread: the
 //    staged instances take at most 512 lanes.
 // The step's dependent chain is then 15 instructions of ptxas's own
-// division (SASS); the least the recurrence needs is 8 (chip_smoke.py's
+// division (SASS); the least the recurrence needs is 6 (chip_smoke.py's
 // CHAIN_CYCLES).  A step takes ~380 cycles at N = 384 (chip_smoke.py), far
 // above either: 12 warps share an SM's 4 schedulers, so issue, not the
 // chain, is taken to pace it (inferred from the SASS, not measured).
@@ -77,6 +79,40 @@
 // reads the table in global memory in its (N or R, L+1) int32 layout, with
 // the same passes.  The wrapper picks the instance
 // (cuda_rans.encode_kernel_table).
+//
+// Kernel H writes 5 bytes a symbol (the int32 word, the flag byte) and
+// reads 1 (int8) or 4: at the int8 latent (S = 16, t = 96, N = 384) its
+// bytes (0.0011 ms at 3.35 TB/s) sit just below its chain of t steps
+// (0.0012 ms), at a serving batch (S = 256) far above it (0.017 ms).  Its
+// first design ran one block per stream (16 blocks at B = 2: 116 of 132
+// SMs idle), loaded the int32 symbol and then its two CDF entries from
+// global memory inside each step, and divided with ptxas's division: ~450
+// cycles a step.  This design:
+//  * blocks of kDenseLanes lanes (32) by `streams` streams (cuda_rans.
+//    dense_streams: 4 at S = 16, 8 at S = 256), the ragged last lane block
+//    and stream row masked, so any N and S run;
+//  * B's lookahead: steps in groups of kDenseAhead, symbols two groups
+//    ahead, the lookups one group ahead, into two buffers in turn so that
+//    nothing is copied between groups;
+//  * the table in shared memory as one packed 8-byte entry a (symbol,
+//    lane): start, c = 2^16 - freq and freq's magic number
+//    (cuda_rans.stage_lane_packed, made once per table tensor), laid out
+//    so that a lane block's entries are one slab, copied by one bulk copy
+//    of the Tensor Memory Accelerator; one LDS.64 a lookup, and the renorm
+//    threshold one LOP3 from it.  A table without a u16 layout, or whose
+//    slab does not fit, is read in global memory (its int32 rows and a
+//    layout of magic numbers, cuda_rans.stage_lane_magic);
+//  * the division by the magic number (dense_step): the chain is the
+//    compare, the select, IMAD.HI (which can add y and carry out), IMAD.X
+//    (the carry, bit 32), SHF.R.U64 and one IMAD: 6 instructions, 7 where
+//    ptxas adds y by an IADD3 of its own (SASS);
+//  * int8 symbols read as int8 (the Sym template), no cast before it;
+//  * 32-bit offsets from each thread's bases (an address is one
+//    IMAD.WIDE), and the word and the flag written by predicated stores,
+//    so that a group stays one basic block.
+// Measured on one H100 (scripts/torch_rans_ab.py): ~94 cycles a step at
+// S = 16 (~41 instructions a step in chip_smoke.py's SASS count), ~2.7 us
+// a call besides, and at S = 256 about 1.6x the byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -380,46 +416,292 @@ int launch(const void* syms, const void* ctx, const void* table,
   return (int)cudaGetLastError();
 }
 
-// One step of the reverse recurrence for symbol i of lane k (kernel H):
-//   need = (x >> 16) >= freq;  word = x & 0xFFFF;  if need: x >>= 16
-//   x = ((x / freq) << 16) + x % freq + start
-__device__ __forceinline__ bool encode_step(const int* __restrict__ syms,
-                                            const int* __restrict__ table,
-                                            int k, size_t i, int L1,
-                                            uint32_t& x, uint32_t& word) {
-  // out-of-range input is the caller's error; clamp only so that the row
-  // read stays inside the table
-  const int* row = table + (size_t)k * L1;
-  int sym = syms[i];
-  sym = sym < 0 ? 0 : (sym > L1 - 2 ? L1 - 2 : sym);
-  const uint32_t start = (uint32_t)__ldg(row + sym);
-  const uint32_t freq = (uint32_t)__ldg(row + sym + 1) - start;
-  const bool need = (x >> 16) >= freq;
-  word = x & 0xFFFFu;
-  if (need) x >>= 16;
-  x = ((x / freq) << 16) + x % freq + start;
-  return need;
+// Kernel H: pass 1 alone, dense outputs.  A block is kDenseLanes threads
+// by `streams` rows: thread (x, y) runs lane c * kDenseLanes + x of stream
+// g * streams + y, for block g * nblk + c.  No lane depends on
+// another (no compaction scan), so nothing ties a stream's lanes to one
+// block; the rows of a block share its staged columns of the table.
+constexpr int kDenseLanes = 32;  // lanes a block, one warp a stream row
+constexpr int kDenseMaxThreads = 256;
+constexpr int kDenseStaticSmem = 16;  // the bulk copy's mbarrier
+constexpr int kDenseAhead = 8;  // steps a group
+
+// One entry of the packed layout (kStaged; cuda_rans.stage_lane_packed):
+// bits 0-15 start, 16-31 c = 2^16 - freq, 32-63 the magic number of freq.
+// The layout is (nblk, L1 - 1, kDenseLanes): lane block c's entries are one
+// contiguous slab, symbol j of its lane x at j * kDenseLanes + x.
+struct __align__(8) Packed {
+  uint32_t sc, m;
+};
+
+// What a lookup keeps until its step: the staged instance the packed
+// entry; the global one start, freq (any u32: the row's difference) and
+// the magic number.
+template <int kTab>
+struct Look {
+  uint32_t sc, m;
+};
+template <>
+struct Look<kGlobal> {
+  uint32_t start, freq, m;
+};
+
+// start, c = 2^16 - freq, the renorm threshold thr and l = ceil(log2
+// freq) of a lookup: from the lookup alone, so off the chain.
+// ceil(log2 freq) from v = freq - 1: the position of v's highest set bit
+// plus 1 (bfind gives 0xFFFFFFFF for v = 0, so freq = 1 gives 0).
+__device__ __forceinline__ int ceil_log2_from(uint32_t v) {
+  uint32_t b;
+  asm("bfind.u32 %0, %1;" : "=r"(b) : "r"(v));
+  return (int)(b + 1u);
+}
+__device__ __forceinline__ void derive(const Look<kStaged>& e,
+                                       uint32_t& start, uint32_t& c,
+                                       uint32_t& thr, int& l) {
+  start = e.sc & 0xFFFFu;
+  c = e.sc >> 16;
+  thr = ~e.sc | 0xFFFFu;  // ~(c << 16): freq * 2^16 - 1, or 2^32 - 1
+  l = ceil_log2_from(c ^ 0xFFFFu);  // freq - 1 = 2^16 - 1 - c
+}
+__device__ __forceinline__ void derive(const Look<kGlobal>& e,
+                                       uint32_t& start, uint32_t& c,
+                                       uint32_t& thr, int& l) {
+  start = e.start;
+  c = 65536u - e.freq;
+  thr = e.freq >= 65536u ? 0xFFFFFFFFu : (e.freq << 16) - 1u;
+  l = ceil_log2_from(e.freq - 1u);
 }
 
-// Kernel H: pass 1 only, dense outputs, one block per stream.
-__global__ void rans_encode_dense_kernel(const int* __restrict__ syms,
-                                         const int* __restrict__ lane_cdf,
-                                         int* __restrict__ emit,
-                                         uint8_t* __restrict__ need,
-                                         int* __restrict__ x_fin, int T,
-                                         int N, int L1) {
-  const int s = blockIdx.x;
-  const int k = threadIdx.x;
-  if (k >= N) return;
-  const size_t off = (size_t)s * T * N;
-  uint32_t x = 1u << 16;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t i = off + (size_t)t * N + k;
-    uint32_t word;
-    need[i] = encode_step(syms, lane_cdf, k, i, L1, x, word);
-    emit[i] = (int)word;
+// Bytes of shared memory of the staged instance: the block's part of the
+// packed layout, (L1 - 1, kDenseLanes) entries of 8 bytes.
+__host__ __device__ __forceinline__ int dense_table_bytes(int L1) {
+  return 8 * (L1 - 1) * kDenseLanes;
+}
+
+// One bulk copy by the Tensor Memory Accelerator of `bytes` (a multiple of
+// 16, both addresses 16-byte aligned) from global memory into this
+// block's shared memory, completing on the mbarrier `bar`.  Issued by one
+// thread; every thread then waits with bulk_wait.
+__device__ __forceinline__ void bulk_copy(void* smem_dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(d),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "wait_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      " @!p bra wait_%=;\n}\n" ::"r"(b)
+      : "memory");
+}
+
+// Stores the word w and the flag f at p and q where pred is non-zero, as
+// two predicated stores (a branch would end the group's basic block).
+__device__ __forceinline__ void store_word_flag(int* p, uint32_t w,
+                                                uint8_t* q, uint32_t f,
+                                                unsigned pred) {
+  asm volatile(
+      "{\n .reg .pred r;\n setp.ne.u32 r, %4, 0;\n"
+      " @r st.global.b32 [%0], %1;\n @r st.global.u8 [%2], %3;\n}\n" ::"l"(
+          __cvta_generic_to_global(p)),
+      "r"(w), "l"(__cvta_generic_to_global(q)), "r"(f), "r"(pred)
+      : "memory");
+}
+
+// One step of the reverse recurrence of kernel H with the division done by
+// a magic number (Granlund and Montgomery's round-up method for 32-bit
+// dividends: l = ceil(log2 freq), m = floor(2^32 (2^l - freq) / freq) + 1,
+// floor(y / freq) = (hi32(y * m) + y) >> l, exact for every y < 2^32 and
+// 1 <= freq < 2^32; cuda_rans.dense_quotient):
+//   need = x > thr (thr = freq * 2^16 - 1, or 2^32 - 1 where freq >= 2^16)
+//   y = need ? x >> 16 : x;  q = y / freq
+//   x = y + q * c + start   (c = 2^16 - freq; = (q << 16) + y % freq + start)
+// thr, l, c and y + start come from the lookups alone: the chain is the
+// compare, the select, IMAD.HI, the 33-bit add and shift, and one IMAD.
+__device__ __forceinline__ uint32_t dense_step(uint32_t x, uint32_t start,
+                                               uint32_t c, uint32_t thr,
+                                               int l, uint32_t m,
+                                               bool& need) {
+  need = x > thr;
+  const uint32_t y = need ? x >> 16 : x;
+  const uint32_t q =
+      (uint32_t)(((unsigned long long)__umulhi(y, m) + y) >> l);
+  return q * c + (y + start);
+}
+
+template <typename Sym, int kTab>
+__global__ void __launch_bounds__(kDenseMaxThreads)
+    rans_encode_dense_kernel(const Sym* __restrict__ syms,
+                             const void* __restrict__ table,
+                             const uint32_t* __restrict__ magic,
+                             int* __restrict__ emit,
+                             uint8_t* __restrict__ need,
+                             int* __restrict__ x_fin, int S, int T, int N,
+                             int L1, int nblk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kInShared = kTab != kGlobal;
+  const int npad = ((N + 31) / 32) * 32;
+  const int g = blockIdx.x / nblk;
+  const int c0 = (blockIdx.x - g * nblk) * kDenseLanes;
+  const int tid = threadIdx.x;
+  const int k = c0 + tid;
+  const int s = g * blockDim.y + threadIdx.y;
+  const bool active = k < N && s < S;
+  // lanes past N and rows past S read lane 0 of stream S - 1
+  const int kr = k < N ? k : 0;
+  const int sr = s < S ? s : S - 1;
+
+  // The staged instance copies its lane block's part of the packed layout,
+  // one contiguous (L1 - 1, kDenseLanes) slab, with one bulk copy.
+  __shared__ __align__(8) uint64_t bar;
+  if (kInShared) {
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       (uint32_t)__cvta_generic_to_shared(&bar))
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const int bytes = dense_table_bytes(L1);
+      bulk_copy(smem,
+                static_cast<const unsigned char*>(table) +
+                    (size_t)(blockIdx.x - g * nblk) * bytes,
+                bytes, &bar);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits
   }
-  x_fin[(size_t)s * N + k] = (int)x;
+  // Each thread's inputs and outputs lie at base[t * N] from its own
+  // bases: 32-bit offsets (T * N < 2^31, checked at launch), so that an
+  // address is one IMAD.WIDE.
+  const size_t first = (size_t)sr * T * N + kr;
+  const Sym* sp = syms + first;
+  // A group is kDenseAhead steps, t descending; its symbols load two
+  // groups ahead and its lookups run one group ahead, into one of two
+  // buffers (A for even groups, B for odd), so no value is copied.
+  int symA[kDenseAhead], symB[kDenseAhead];
+  Look<kTab> lkA[kDenseAhead], lkB[kDenseAhead];
+  auto load = [&](int* sym, int t0) {  // steps t0 .. t0 - kDenseAhead + 1
+#pragma unroll
+    for (int j = 0; j < kDenseAhead; ++j)
+      sym[j] = (int)__ldg(sp + ((t0 - j) * N));
+  };
+  const Packed* tp = reinterpret_cast<const Packed*>(smem) + tid;
+  const int* row = static_cast<const int*>(table) + (size_t)kr * L1;
+  auto cdf = [&](int sym) {
+    // out-of-range input is the caller's error; clamp only so that the
+    // reads stay inside the table
+    sym = (int)min((uint32_t)sym, (uint32_t)(L1 - 2));
+    Look<kTab> e;
+    if constexpr (kInShared) {
+      const Packed p = tp[sym * kDenseLanes];
+      e.sc = p.sc;
+      e.m = p.m;
+    } else {
+      e.start = (uint32_t)__ldg(row + sym);
+      e.freq = (uint32_t)__ldg(row + sym + 1) - e.start;
+      e.m = __ldg(magic + (size_t)sym * npad + kr);
+    }
+    return e;
+  };
+  auto look_up = [&](const int* sym, Look<kTab>* lk) {
+#pragma unroll
+    for (int j = 0; j < kDenseAhead; ++j) lk[j] = cdf(sym[j]);
+  };
+
+  uint32_t x = 1u << 16;
+  int* const ep = emit + first;
+  uint8_t* const fp = need + first;
+  int off = (T - 1) * N;  // this step's offset
+  auto step = [&](const Look<kTab>& e) {
+    uint32_t start, c, thr;
+    int l;
+    derive(e, start, c, thr, l);
+    bool nd;
+    const uint32_t word = x & 0xFFFFu;
+    x = dense_step(x, start, c, thr, l, e.m, nd);
+    store_word_flag(ep + off, word, fp + off, nd, active);
+    off -= N;
+  };
+  auto run = [&](const Look<kTab>* lk) {
+#pragma unroll
+    for (int j = 0; j < kDenseAhead; ++j) step(lk[j]);
+  };
+
+  // The full groups start at top = T - 1 - T % kDenseAhead; the steps
+  // above them run first, one by one.
+  const int groups = T / kDenseAhead;
+  const int top = T - 1 - T % kDenseAhead;
+  if (groups > 0) load(symA, top);
+  if (groups > 1) load(symB, top - kDenseAhead);
+  if (kInShared) bulk_wait(&bar);
+  for (int t = T - 1; t > top; --t) step(cdf((int)__ldg(sp + t * N)));
+  if (groups > 0) look_up(symA, lkA);
+  for (int gi = 0; gi < groups; gi += 2) {
+    const int t0 = top - gi * kDenseAhead;
+    // group gi from A; meanwhile group gi + 1's lookups into B, group gi
+    // + 2's symbols into A
+    if (gi + 1 < groups) {
+      look_up(symB, lkB);
+      if (gi + 2 < groups) load(symA, t0 - 2 * kDenseAhead);
+    }
+    run(lkA);
+    if (gi + 1 >= groups) break;
+    // group gi + 1 from B; group gi + 2's lookups into A, gi + 3's loads
+    if (gi + 2 < groups) {
+      look_up(symA, lkA);
+      if (gi + 3 < groups) load(symB, t0 - 3 * kDenseAhead);
+    }
+    run(lkB);
+  }
+  if (active) x_fin[(size_t)s * N + k] = (int)x;
+}
+
+template <typename Sym, int kTab>
+int launch_dense(const void* syms, const void* table, const void* magic,
+                 void* emit, void* need, void* x_fin, int S, int T, int N,
+                 int L1, int streams, void* stream) {
+  if (S <= 0 || T <= 0 || N <= 0 || L1 < 2 || streams < 1 ||
+      kDenseLanes * streams > kDenseMaxThreads ||
+      (long long)T * N > 0x7FFFFFFFLL ||
+      (kTab == kGlobal && magic == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long nblk = (N + kDenseLanes - 1) / kDenseLanes;
+  const long long blocks = (S + streams - 1) / streams * nblk;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const long long bytes =
+      kTab == kGlobal ? 0 : (long long)dense_table_bytes(L1);
+  // the slab beside the kernel's 16 bytes of static shared memory (its
+  // mbarrier)
+  if (bytes + kDenseStaticSmem > kMaxDynamicSmem)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = rans_encode_dense_kernel<Sym, kTab>;
+  if (bytes > 48 * 1024) {  // raise the limit to the largest slab seen
+    static int raised[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices || raised[dev] < bytes) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kMaxDevices) raised[dev] = (int)bytes;
+    }
+  }
+  kernel<<<(unsigned)blocks, dim3(kDenseLanes, streams), (int)bytes,
+           (cudaStream_t)stream>>>(
+      (const Sym*)syms, table, (const uint32_t*)magic, (int*)emit,
+      (uint8_t*)need, (int*)x_fin, S, T, N, L1, (int)nblk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -468,17 +750,31 @@ extern "C" int sicn_rans_encode_ctx(const void* syms, const void* ctx,
   }
 }
 
-// Kernel H: int32 syms (S, T, N), lane_cdf (N, L1) -> emit (S, T, N) int32,
-// need (S, T, N) uint8 flags, x_fin (S, N) u32 states.
-extern "C" int sicn_rans_encode_dense(const void* syms, const void* lane_cdf,
-                                      void* emit, void* need, void* x_fin,
-                                      int S, int T, int N, int L1,
-                                      void* stream) {
-  const int threads = ((N + 31) / 32) * 32;
-  if (S <= 0 || T <= 0 || N <= 0 || threads > 1024 || L1 < 2)
+// Kernel H: syms (S, T, N), int8 (sym_bytes 1) or int32 (4); mode 2: `table`
+// is the packed (ceil(N / 32), L1 - 1, 32) layout of 8-byte entries
+// (`magic` unused), mode 0: the (N, L1) int32 lane table and `magic` the
+// (L1 - 1, npad) u32 magic layout; blocks of 32 lanes x `streams` threads
+// (at most 8) -> emit (S, T, N)
+// int32, need (S, T, N) uint8 flags, x_fin (S, N) u32 states.
+extern "C" int sicn_rans_encode_dense(const void* syms, const void* table,
+                                      const void* magic, void* emit,
+                                      void* need, void* x_fin, int S, int T,
+                                      int N, int L1, int streams,
+                                      int sym_bytes, int mode, void* stream) {
+  const bool wide = sym_bytes == 4;
+  if ((sym_bytes != 1 && !wide) || (mode != kGlobal && mode != kStaged))
     return (int)cudaErrorInvalidValue;
-  rans_encode_dense_kernel<<<S, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)syms, (const int*)lane_cdf, (int*)emit, (uint8_t*)need,
-      (int*)x_fin, T, N, L1);
-  return (int)cudaGetLastError();
+  if (mode == kStaged)
+    return wide ? launch_dense<int32_t, kStaged>(syms, table, magic, emit,
+                                                 need, x_fin, S, T, N, L1,
+                                                 streams, stream)
+                : launch_dense<int8_t, kStaged>(syms, table, magic, emit,
+                                                need, x_fin, S, T, N, L1,
+                                                streams, stream);
+  return wide ? launch_dense<int32_t, kGlobal>(syms, table, magic, emit,
+                                               need, x_fin, S, T, N, L1,
+                                               streams, stream)
+              : launch_dense<int8_t, kGlobal>(syms, table, magic, emit, need,
+                                              x_fin, S, T, N, L1, streams,
+                                              stream);
 }

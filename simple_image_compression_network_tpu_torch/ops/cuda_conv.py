@@ -198,11 +198,6 @@ def pick_tile(b: int, xo: int, yo: int, n_cols: int, n_blocks: int,
     return cands[-1]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_int8_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      what: str) -> None:
     if not (x.dtype == w.dtype == bias.dtype == torch.int8):
@@ -297,7 +292,7 @@ def _conv3x3(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor,
             wp.dtype != torch.int8 or wp.device != x.device:
         raise ValueError(f"packed weights {tuple(wp.shape)} do not fit "
                          f"C={c}, N={n}")
-    tile = pick_tile(b, xo, yo, n, 1, _sm_count(x.device.index))
+    tile = pick_tile(b, xo, yo, n, 1, _build.sm_count(x.device.index))
     err = _call_on(x, _build.lib().sicn_conv3x3_s1_int8,
                    x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
                    out.data_ptr(), b, xd, yd, c, n, kw, int(im2col), tile,
@@ -433,7 +428,7 @@ def _conv_sparse(x: torch.Tensor, w_taps: torch.Tensor, bias: torch.Tensor,
                          f"this tap table")
     table = plan.table
     tile = pick_tile(b, xo, yo, plan.bn, plan.n_blocks,
-                     _sm_count(x.device.index))
+                     _build.sm_count(x.device.index))
     err = _call_on(x, _build.lib().sicn_conv_sparse_int8,
                    x.data_ptr(), pk.w.data_ptr(), bias.data_ptr(),
                    out.data_ptr(), ctypes.addressof(table), len(pk.taps), b,

@@ -15,7 +15,9 @@ containers to the JAX package's sharded containers byte for byte, the
 symbols compared first off their ties (y, or y - mu, within ``TIE`` of a
 half-integer, where an ulp between two frameworks decides the rounding:
 counted and asserted); the round trip and cross-decoding to the port's
-single-device codec, y_hat exactly and x_hat within 1e-5.
+single-device codec, y_hat exactly and x_hat within 1e-5.  In the group
+of 2 the scale model also runs in bf16, against the port's single-device
+bf16 codec (x_hat within 2^-7, bf16's spacing below 1).
 
 The spawned ranks import this module, so it imports no JAX at its top: the
 JAX package is imported in the fixtures that compute the references."""
@@ -56,6 +58,8 @@ TIE = 1e-4
 # for byte
 N_TIES = {"scale": 33, "meanscale": 33}
 TOL = 1e-5
+BF16 = torch.bfloat16
+BF16_X_TOL = 2.0 ** -7    # x_hat in [0, 1], as tests/test_torch_bf16.py
 SPAWN_S = 180
 # one form of each tiled layer kind: (module path, NCHW input shape)
 FORMS = {"conv k5/s2": ("g_a.Conv_0", (2, 3, 64, 40)),
@@ -81,8 +85,8 @@ def _form_input(shape) -> torch.Tensor:
         size=shape).astype(np.float32))
 
 
-def _port_model(which: str, state: dict):
-    model = MODELS[which][0](n=N, m=M, device="cpu")
+def _port_model(which: str, state: dict, dtype=torch.float32):
+    model = MODELS[which][0](n=N, m=M, device="cpu", dtype=dtype)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model
 
@@ -188,6 +192,21 @@ def _fallback_case(state: dict, mesh) -> dict:
         hyper_codec._Z_MAX, hyper_codec._Y_MAX_DEV = saved
 
 
+def _bf16_case(state: dict, single: list, mesh) -> dict:
+    """The scale model in bf16: compress then decompress, and the single-
+    device bf16 codec's containers decoded."""
+    codec = hyper_codec.HyperCodec(_port_model("scale", state, BF16))
+    sharded = hyper_sharded.ShardedHyperCodec(codec, mesh)
+    x = torch.from_numpy(_images())
+    blobs = sharded.compress_batch(x)
+    x_hat, y_hat = sharded.decompress_batch(blobs)
+    x1, y1 = sharded.decompress_batch(single)
+    return {"blobs": blobs, "routes": dict(sharded.routes),
+            **{k: _primary(spatial.gather_image(t, mesh).numpy())
+               for k, t in (("x_hat", x_hat), ("y_hat", y_hat),
+                            ("x_single", x1), ("y_single", y1))}}
+
+
 def _ranks_body(states: dict, singles: dict) -> dict:
     """Every case of this group's size, on one rank."""
     torch.set_num_threads(1)
@@ -197,6 +216,8 @@ def _ranks_body(states: dict, singles: dict) -> dict:
            "codec": {w: _codec_case(w, states[w], singles[w], mesh)
                      for w in MODELS},
            "fallback": _fallback_case(states["scale"], mesh)}
+    if dist.get_world_size() == 2:
+        out["bf16"] = _bf16_case(states["scale"], singles["bf16"], mesh)
     sharded = hyper_sharded.ShardedHyperCodec(hyper_codec.HyperCodec(model),
                                               mesh)
     out["refused"] = _raises(lambda: sharded.compress_batch(
@@ -264,6 +285,8 @@ def refs():
             0, std, state[name].shape).astype(np.float32)
     out["varied"] = {**_single(MODELS["varied"][1](
         _port_model("varied", state)), x), "state": state}
+    out["bf16"] = _single(hyper_codec.HyperCodec(_port_model(
+        "scale", out["scale"]["state"], BF16)), x)
     return out
 
 
@@ -281,7 +304,7 @@ def _single(codec, x: np.ndarray) -> dict:
 
 def _spawn(refs, n: int) -> list:
     states = {w: refs[w]["state"] for w in MODELS}
-    singles = {w: refs[w]["blobs"] for w in MODELS}
+    singles = {w: refs[w]["blobs"] for w in (*MODELS, "bf16")}
     return distributed.spawn_ranks(_ranks_body, n, backend="gloo",
                                    device="cpu", timeout_s=SPAWN_S,
                                    args=(states, singles))
@@ -441,3 +464,26 @@ def test_the_varied_prior_spreads_mu_and_the_scale_bins(refs):
     rows = ctx.shape[1] // 4
     for r in range(1, 4):
         assert not torch.equal(ctx[:, :rows], ctx[:, r * rows:(r + 1) * rows])
+
+
+def test_bf16_scale_model_cross_decodes_with_the_single_device_codec(
+        refs, group2):
+    """The scale model in bf16 on 2 ranks: its containers and the single-
+    device bf16 codec's decode under each other with y_hat exactly the
+    symbols, x_hat within bf16's 2^-7 of the single-device decode's; the
+    containers are byte-identical (every tile conv of g_a and h_a sums as
+    the whole image's, so no symbol differs)."""
+    r, res = refs["bf16"], group2[0]["bf16"]
+    assert res["routes"] == {"sharded": 3, "fallback": 0}
+    x_hat, y_hat = r["codec"].decompress_batch(res["blobs"])
+    np.testing.assert_array_equal(y_hat.numpy(), res["y_hat"])
+    np.testing.assert_allclose(x_hat.numpy(), res["x_hat"], atol=BF16_X_TOL,
+                               rtol=0)
+    np.testing.assert_array_equal(res["y_single"], r["y_hat"])
+    np.testing.assert_allclose(res["x_single"], r["x_hat"], atol=BF16_X_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(res["x_hat"], r["x_hat"], atol=BF16_X_TOL,
+                               rtol=0)
+    n_diff = int((res["y_hat"] != r["y_hat"]).sum())
+    assert n_diff == 0
+    assert res["blobs"] == r["blobs"]
