@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import ilrans
 
 _U16 = 0xFFFF
@@ -179,7 +180,8 @@ def words_at_need(words: torch.Tensor, got: np.ndarray, counts: np.ndarray
     short of the need, the words fetched again (blocking)."""
     need = min(bucket_words(int(counts.max())), words.shape[1])
     if need > got.shape[1]:
-        got = fetch_words(words, counts)
+        with profiling.span("wait", refetches=1):
+            got = fetch_words(words, counts)
     return got, need
 
 
@@ -192,7 +194,8 @@ def to_host_async(t: torch.Tensor
     CPU: (``t``, None)."""
     if t.device.type != "cuda":
         return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with profiling.span("pin", pinned_bytes=t.nbytes):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
@@ -204,8 +207,9 @@ def host_array(fetched: Tuple[torch.Tensor, Optional[torch.cuda.Event]]
     """The numpy view of a ``to_host_async`` copy, after waiting on its
     event (that copy alone, not the stream's later work)."""
     host, done = fetched
-    if done is not None:
-        done.synchronize()
+    with profiling.span("wait"):
+        if done is not None:
+            done.synchronize()
     return host.numpy()
 
 
@@ -213,10 +217,13 @@ def to_device_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload a host array through pinned memory without waiting for the
     stream (the pinned copy stays allocated until the upload has run).  On
     the CPU: the array as a tensor."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    with profiling.span("upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type != "cuda":
+            return t
+        with profiling.span("pin", pinned_bytes=t.nbytes):
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
 
 
 def gather_words(chunks: list) -> Tuple[np.ndarray, np.ndarray]:

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..models.hyperprior import MeanScaleHyperprior, ScaleHyperprior
+from ..utils import profiling
 from . import (container, cuda_rans, device_rans, entropy, escape, ilrans,
                rans)
 from .int_codec import _pack_streams, _unpack_streams, plan_streams
@@ -113,7 +114,8 @@ def _patch_escapes(vals: torch.Tensor, raws: Sequence[bytes],
     exact values.  Host work, only for batches that carry raws."""
     if not any(escape.unpack_raw(r)[0].size for r in raws):
         return vals
-    syms = vals.cpu().numpy() + max_abs
+    with profiling.span("wait", escape_syncs=1):
+        syms = vals.cpu().numpy() + max_abs
     out = np.stack([escape.from_symbols(syms[i], escape.unpack_raw(r)[0],
                                         max_abs).reshape(syms.shape[1:])
                     for i, r in enumerate(raws)])
@@ -138,17 +140,18 @@ def parse_dev(blobs: Sequence[bytes]) -> List[Tuple]:
     (header (X, Y, zx, zy, zc, yx, yy, yc), z streams, y streams, z raw
     section, y raw section).  Raises ValueError for another container or
     mixed geometries."""
-    metas = []
-    for data in blobs:
-        cid, sections = container.unpack(data)
-        if cid != container.CODEC_HYPERPRIOR_DEV or len(sections) != 5:
-            raise ValueError("not a device-format hyperprior container")
-        hdr, z_pay, y_pay, z_raw, y_raw = sections
-        metas.append((struct.unpack("<HHHHHHHH", hdr),
-                      _unpack_streams(z_pay), _unpack_streams(y_pay),
-                      z_raw, y_raw))
-    if any(m[0] != metas[0][0] for m in metas):
-        raise ValueError("mixed geometries in one batch")
+    with profiling.span("parse"):
+        metas = []
+        for data in blobs:
+            cid, sections = container.unpack(data)
+            if cid != container.CODEC_HYPERPRIOR_DEV or len(sections) != 5:
+                raise ValueError("not a device-format hyperprior container")
+            hdr, z_pay, y_pay, z_raw, y_raw = sections
+            metas.append((struct.unpack("<HHHHHHHH", hdr),
+                          _unpack_streams(z_pay), _unpack_streams(y_pay),
+                          z_raw, y_raw))
+        if any(m[0] != metas[0][0] for m in metas):
+            raise ValueError("mixed geometries in one batch")
     return metas
 
 
@@ -266,9 +269,10 @@ class HyperCodec:
         if x.shape[1] % 64 or x.shape[2] % 64:
             raise ValueError("hyperprior codecs need image sides divisible "
                              "by 64 (16x analysis, 4x hyper stage)")
-        y, z, sigma = self.encode_parts(x)
-        return self._entropy_schedule(y, z, self._scale_ctx(sigma),
-                                      x.shape[1], x.shape[2])
+        with profiling.span("enqueue"):
+            y, z, sigma = self.encode_parts(x)
+            return self._entropy_schedule(y, z, self._scale_ctx(sigma),
+                                          x.shape[1], x.shape[2])
 
     def entropy_encode(self, y: torch.Tensor, z: torch.Tensor,
                        ctx_y: torch.Tensor, ix: int, iy: int) -> List[bytes]:
@@ -332,19 +336,25 @@ class HyperCodec:
         yw_np, self._mxb_y = device_rans.words_at_need(
             yw, buf[n_wz: n_wz + n_wy].view(np.uint16).reshape(b * s_y, w_y),
             ycnt_np)
-        z_chunks = device_rans.streams_from_words(
-            zw_np, zcnt_np, t_z * nl_z, nl_z)
-        y_chunks = device_rans.streams_from_words(
-            yw_np, ycnt_np, t_y * nl_y, nl_y)
-        z_np = z.cpu().numpy() if z_esc_np.any() else None
-        y_np = y.cpu().numpy() if y_esc_np.any() else None
+        with profiling.span("pack"):
+            z_chunks = device_rans.streams_from_words(
+                zw_np, zcnt_np, t_z * nl_z, nl_z)
+            y_chunks = device_rans.streams_from_words(
+                yw_np, ycnt_np, t_y * nl_y, nl_y)
+            z_np = y_np = None
+            if z_esc_np.any():
+                with profiling.span("wait", escape_syncs=1):
+                    z_np = z.cpu().numpy()
+            if y_esc_np.any():
+                with profiling.span("wait", escape_syncs=1):
+                    y_np = y.cpu().numpy()
 
-        geometry = (ix, iy, zx, zy, zc, yx, yy, yc)
-        return [pack_dev(
-            geometry, z_chunks[i * s_z: (i + 1) * s_z],
-            y_chunks[i * s_y: (i + 1) * s_y],
-            z_np[i] if z_np is not None else None,
-            y_np[i] if y_np is not None else None) for i in range(b)]
+            geometry = (ix, iy, zx, zy, zc, yx, yy, yc)
+            return [pack_dev(
+                geometry, z_chunks[i * s_z: (i + 1) * s_z],
+                y_chunks[i * s_y: (i + 1) * s_y],
+                z_np[i] if z_np is not None else None,
+                y_np[i] if y_np is not None else None) for i in range(b)]
 
     # --- decode ---------------------------------------------------------
     def decompress_batch(self, blobs: Sequence[bytes], return_z: bool = False
@@ -372,43 +382,49 @@ class HyperCodec:
         s_y, nl_y, t_y = _plan_lanes(yx * yy, yc)
         if any(len(m[1]) != s_z or len(m[2]) != s_y for m in metas):
             raise ValueError("stream plan does not match the geometry")
-        zw_np, zc_np = device_rans.gather_words(
-            [ch for m in metas for ch in m[1]])
-        yw_np, yc_np = device_rans.gather_words(
-            [ch for m in metas for ch in m[2]])
-        # words first, so that each tensor's words start 16-byte aligned
-        # (the caps are multiples of the bucket); the counts after them
-        up = device_rans.to_device_async(np.concatenate([
-            zw_np.reshape(-1), yw_np.reshape(-1),
-            np.concatenate([zc_np, yc_np]).view(np.uint16)]).view(np.int16),
-            self.device)
+        with profiling.span("stage"):
+            zw_np, zc_np = device_rans.gather_words(
+                [ch for m in metas for ch in m[1]])
+            yw_np, yc_np = device_rans.gather_words(
+                [ch for m in metas for ch in m[2]])
+            # words first, so that each tensor's words start 16-byte
+            # aligned (the caps are multiples of the bucket); the counts
+            # after them
+            staged = np.concatenate([
+                zw_np.reshape(-1), yw_np.reshape(-1),
+                np.concatenate([zc_np, yc_np]).view(np.uint16)]
+            ).view(np.int16)
+        up = device_rans.to_device_async(staged, self.device)
         n_wz, n_wy = zw_np.size, yw_np.size
         zw = up[:n_wz].view(zw_np.shape)
         yw = up[n_wz: n_wz + n_wy].view(yw_np.shape)
         counts = up[n_wz + n_wy:].view(torch.int32)
 
-        z_syms, z_cons, z_fin = cuda_rans.decode(
-            zw, cuda_rans.split_init(zw, nl_z), self._z_lane_cdf(nl_z), t_z)
-        z_vals = z_syms.to(torch.int32).reshape(b, zx, zy, zc) - _Z_MAX
-        z_hat = _patch_escapes(z_vals, [m[3] for m in metas],
-                               _Z_MAX).to(torch.float32)
+        with profiling.span("enqueue"):
+            z_syms, z_cons, z_fin = cuda_rans.decode(
+                zw, cuda_rans.split_init(zw, nl_z), self._z_lane_cdf(nl_z),
+                t_z)
+            z_vals = z_syms.to(torch.int32).reshape(b, zx, zy, zc) - _Z_MAX
+            z_hat = _patch_escapes(z_vals, [m[3] for m in metas],
+                                   _Z_MAX).to(torch.float32)
 
-        mu, sigma = self._prior_from_z(z_hat)
-        ctx_y = self._scale_ctx(sigma)
-        y_syms, y_cons, y_fin = cuda_rans.decode_ctx(
-            yw, cuda_rans.split_init(yw, nl_y), self._y_table(),
-            ctx_y.reshape(b * s_y, t_y, nl_y).contiguous(), t_y)
-        y_vals = y_syms.reshape(b, yx, yy, yc) - _Y_MAX_DEV
-        y_hat = _patch_escapes(y_vals, [m[4] for m in metas],
-                               _Y_MAX_DEV).to(torch.float32)
-        if mu is not None:
-            y_hat = y_hat + mu
-        x_hat = self.model.decode_arrays(y_hat)
+            mu, sigma = self._prior_from_z(z_hat)
+            ctx_y = self._scale_ctx(sigma)
+            y_syms, y_cons, y_fin = cuda_rans.decode_ctx(
+                yw, cuda_rans.split_init(yw, nl_y), self._y_table(),
+                ctx_y.reshape(b * s_y, t_y, nl_y).contiguous(), t_y)
+            y_vals = y_syms.reshape(b, yx, yy, yc) - _Y_MAX_DEV
+            y_hat = _patch_escapes(y_vals, [m[4] for m in metas],
+                                   _Y_MAX_DEV).to(torch.float32)
+            if mu is not None:
+                y_hat = y_hat + mu
+            x_hat = self.model.decode_arrays(y_hat)
 
-        lb = ilrans.STATE_LB
-        ok = torch.cat([(z_fin == lb).all(1), (y_fin == lb).all(1)]) & (
-            torch.cat([z_cons, y_cons]) == counts)
-        return x_hat, y_hat, z_hat, device_rans.to_host_async(ok), zc_np.size
+            lb = ilrans.STATE_LB
+            ok = torch.cat([(z_fin == lb).all(1), (y_fin == lb).all(1)]) & (
+                torch.cat([z_cons, y_cons]) == counts)
+            fetch = device_rans.to_host_async(ok)
+        return x_hat, y_hat, z_hat, fetch, zc_np.size
 
     def _decompress_drain(self, state: Tuple
                           ) -> Tuple[torch.Tensor, torch.Tensor,

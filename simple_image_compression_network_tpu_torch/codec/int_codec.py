@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..models.codec_int import IntCodecNet
+from ..utils import profiling
 from . import container, cuda_rans, device_rans, entropy, ilrans, rans
 
 _MAX_SYM = 128  # latent values are post-ReLU int8: 0..127
@@ -131,7 +132,8 @@ def _device_cdfs(z: torch.Tensor) -> List[np.ndarray]:
     base = torch.arange(b * c, device=z.device).reshape(b, 1, c) * _MAX_SYM
     key = z.reshape(b, -1, c).to(torch.int64) + base
     counts = torch.bincount(key.reshape(-1), minlength=b * c * _MAX_SYM)
-    counts = counts.reshape(b, c, _MAX_SYM).cpu().numpy()
+    with profiling.span("wait"):
+        counts = counts.reshape(b, c, _MAX_SYM).cpu().numpy()
     if (counts.sum(2) != key.shape[1]).any():
         raise ValueError(f"latent values outside 0..{_MAX_SYM - 1}")
     return [_cdfs_from_counts(k) for k in counts]
@@ -265,26 +267,28 @@ def _compress_schedule(net: IntCodecNet, x: torch.Tensor,
     Kernel B writes into buffers sized for one word a symbol, so no stream
     outgrows them: the JAX package's re-encode on its scan engine has no
     counterpart here."""
-    z = net.analysis(x)
-    b, zx, zy, c = z.shape
-    s, lane_mult = plan_streams(zx * zy, lane_mult, n_streams)
-    n_lanes = lane_mult * c
-    t_steps = (zx * zy) // lane_mult // s
-    syms = z.reshape(b * s, t_steps, n_lanes)
-    if static_cdfs is not None:
-        sections = [b""] * b
-        words, counts = cuda_rans.encode_batch_compact(
-            syms, _lane_cdf_tensor(static_cdfs, n_lanes, z.device))
-    else:
-        cdfs = _device_cdfs(z)
-        sections = [_serialize_cdfs(cd) for cd in cdfs]
-        lanes = _image_lane_tables(cdfs, n_lanes, z.device)
-        outs = [cuda_rans.encode_batch_compact(syms[i * s:(i + 1) * s],
-                                               lanes[i]) for i in range(b)]
-        words, counts = (torch.cat(o) for o in zip(*outs))
-    w = words.shape[1] if mxb is None else min(mxb, words.shape[1])
-    fetch = device_rans.to_host_async(torch.cat([
-        words[:, :w].reshape(-1), counts.view(torch.int16)]))
+    with profiling.span("enqueue"):
+        z = net.analysis(x)
+        b, zx, zy, c = z.shape
+        s, lane_mult = plan_streams(zx * zy, lane_mult, n_streams)
+        n_lanes = lane_mult * c
+        t_steps = (zx * zy) // lane_mult // s
+        syms = z.reshape(b * s, t_steps, n_lanes)
+        if static_cdfs is not None:
+            sections = [b""] * b
+            words, counts = cuda_rans.encode_batch_compact(
+                syms, _lane_cdf_tensor(static_cdfs, n_lanes, z.device))
+        else:
+            cdfs = _device_cdfs(z)
+            sections = [_serialize_cdfs(cd) for cd in cdfs]
+            lanes = _image_lane_tables(cdfs, n_lanes, z.device)
+            outs = [cuda_rans.encode_batch_compact(syms[i * s:(i + 1) * s],
+                                                   lanes[i])
+                    for i in range(b)]
+            words, counts = (torch.cat(o) for o in zip(*outs))
+        w = words.shape[1] if mxb is None else min(mxb, words.shape[1])
+        fetch = device_rans.to_host_async(torch.cat([
+            words[:, :w].reshape(-1), counts.view(torch.int16)]))
     header = struct.pack("<HHHHH", x.shape[1], x.shape[2], zx, zy, c)
     return words, fetch, w, s, t_steps * n_lanes, n_lanes, header, sections
 
@@ -299,32 +303,34 @@ def _compress_drain(state: Tuple) -> Tuple[List[bytes], int]:
     counts_np = buf[n_str * w:].view(np.int32)
     flat_w, need = device_rans.words_at_need(
         words, buf[:n_str * w].view(np.uint16).reshape(n_str, w), counts_np)
-    chunks = device_rans.streams_from_words(flat_w, counts_np, n_syms,
-                                            n_lanes)
-    return [container.pack(container.CODEC_INT8,
-                           [header, tables,
-                            _pack_streams(chunks[i * s:(i + 1) * s])])
-            for i, tables in enumerate(sections)], need
+    with profiling.span("pack"):
+        chunks = device_rans.streams_from_words(flat_w, counts_np, n_syms,
+                                                n_lanes)
+        return [container.pack(container.CODEC_INT8,
+                               [header, tables,
+                                _pack_streams(chunks[i * s:(i + 1) * s])])
+                for i, tables in enumerate(sections)], need
 
 
 def _parse(streams: Sequence[bytes]) -> List[Tuple]:
     """Containers -> [(header fields, table bytes, S stream chunks)], all
     of one geometry, with a stream plan that covers the latent."""
-    metas = []
-    for data in streams:
-        codec_id, sections = container.unpack(data)
-        if codec_id != container.CODEC_INT8 or len(sections) != 3:
-            raise ValueError("not an int8 codec container")
-        header, cdf_bytes, payload = sections
-        metas.append((struct.unpack("<HHHHH", header), cdf_bytes,
-                      _unpack_streams(payload)))
-    (_, _, zx, zy, c) = metas[0][0]
-    if any(m[0] != metas[0][0] for m in metas):
-        raise ValueError("mixed geometries in one batch")
-    s = len(metas[0][2])
-    n_syms = ilrans.unpack_header(metas[0][2][0])[0]
-    if any(len(m[2]) != s for m in metas) or n_syms * s != zx * zy * c:
-        raise ValueError("stream plan does not cover the latent")
+    with profiling.span("parse"):
+        metas = []
+        for data in streams:
+            codec_id, sections = container.unpack(data)
+            if codec_id != container.CODEC_INT8 or len(sections) != 3:
+                raise ValueError("not an int8 codec container")
+            header, cdf_bytes, payload = sections
+            metas.append((struct.unpack("<HHHHH", header), cdf_bytes,
+                          _unpack_streams(payload)))
+        (_, _, zx, zy, c) = metas[0][0]
+        if any(m[0] != metas[0][0] for m in metas):
+            raise ValueError("mixed geometries in one batch")
+        s = len(metas[0][2])
+        n_syms = ilrans.unpack_header(metas[0][2][0])[0]
+        if any(len(m[2]) != s for m in metas) or n_syms * s != zx * zy * c:
+            raise ValueError("stream plan does not cover the latent")
     return metas
 
 
@@ -378,9 +384,11 @@ def _upload_streams(chunks: Sequence[bytes], dev: torch.device
     int32 word counts) on ``dev``, in one pinned upload that does not wait
     for the stream: the words first (16-byte aligned for the kernel), the
     counts after."""
-    words, true_counts = device_rans.gather_words(chunks)
-    up = device_rans.to_device_async(np.concatenate([
-        words.reshape(-1), true_counts.view(np.uint16)]).view(np.int16), dev)
+    with profiling.span("stage"):
+        words, true_counts = device_rans.gather_words(chunks)
+        staged = np.concatenate([
+            words.reshape(-1), true_counts.view(np.uint16)]).view(np.int16)
+    up = device_rans.to_device_async(staged, dev)
     return (up[:words.size].view(words.shape),
             up[words.size:].view(torch.int32))
 
@@ -407,14 +415,16 @@ def _decompress_schedule(net: IntCodecNet, metas: List[Tuple],
     else:
         parts = [(wdev, _lane_cdf_tensor(_tables_of(metas[0], static_cdfs),
                                          n_lanes, dev))]
-    outs = [cuda_rans.decode(w, cuda_rans.split_init(w, n_lanes), tb,
-                             t_steps) for w, tb in parts]
-    syms, consumed, x_fin = (outs[0] if len(outs) == 1 else
-                             (torch.cat(o) for o in zip(*outs)))
-    z = syms.reshape(b, zx, zy, c)
-    x_hat = net.synthesis(z)
-    ok = (consumed == counts) & (x_fin == ilrans.STATE_LB).all(1)
-    return x_hat, z, device_rans.to_host_async(ok), s
+    with profiling.span("enqueue"):
+        outs = [cuda_rans.decode(w, cuda_rans.split_init(w, n_lanes), tb,
+                                 t_steps) for w, tb in parts]
+        syms, consumed, x_fin = (outs[0] if len(outs) == 1 else
+                                 (torch.cat(o) for o in zip(*outs)))
+        z = syms.reshape(b, zx, zy, c)
+        x_hat = net.synthesis(z)
+        ok = (consumed == counts) & (x_fin == ilrans.STATE_LB).all(1)
+        fetch = device_rans.to_host_async(ok)
+    return x_hat, z, fetch, s
 
 
 def _decompress_drain(state: Tuple) -> Tuple[torch.Tensor, torch.Tensor]:

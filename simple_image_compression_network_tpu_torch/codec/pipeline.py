@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..models.codec_int import IntCodecNet
+from ..utils import profiling
 from . import int_codec
 
 
@@ -31,7 +32,10 @@ class _Pipeline:
     """Depth-bounded queue of scheduled batches: ``submit`` schedules one
     and drains the oldest beyond ``depth``; ``collect`` returns the oldest
     finished batch, draining one if none is finished; ``drain`` finishes
-    all.  Subclasses give ``_schedule`` and ``_finish``."""
+    all.  Subclasses give ``_schedule`` and ``_finish``.  A batch's
+    schedule and finish are the spans ``pipeline.schedule`` and
+    ``pipeline.finish`` (``utils/profiling.py``); the queue is first in,
+    first out, so the n-th finish is the n-th schedule's batch."""
 
     def __init__(self, depth: int):
         if depth < 1:
@@ -42,12 +46,14 @@ class _Pipeline:
 
     def submit(self, batch) -> None:
         """Enqueue one batch; waits only on batches beyond ``depth``."""
-        self._q.append(self._schedule(batch))
+        with profiling.span("pipeline.schedule"):
+            self._q.append(self._schedule(batch))
         while len(self._q) > self.depth:
             self._drain_one()
 
     def _drain_one(self) -> None:
-        self._out.append(self._finish(self._q.popleft()))
+        with profiling.span("pipeline.finish"):
+            self._out.append(self._finish(self._q.popleft()))
 
     def collect(self):
         """The oldest finished batch's result (None if nothing is queued)."""

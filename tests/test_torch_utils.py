@@ -1,5 +1,6 @@
-"""The port's utilities: tensor dumps, the stage timer and trace, the
-checks, and where the compile cache puts the builds."""
+"""The port's utilities: tensor dumps, the profiler trace with the
+program's spans, the checks, and where the compile cache puts the
+builds."""
 
 import json
 import os
@@ -37,29 +38,28 @@ def test_dump_round_trips(tmp_path):
     assert dump.load(str(tmp_path), "other").dtype == np.float32
 
 
-def test_stage_timer_counts():
-    t = profiling.StageTimer()
-    with t.stage("a"):
-        torch.ones((8, 8)).sum()
-    with t.stage("a"):
-        pass
-    with t.stage("b"):
-        pass
-    assert t.counts == {"a": 2, "b": 1}
-    rep = t.report()
-    assert "a" in rep and "2x" in rep and "1x" in rep
-    assert profiling.throughput_mps(1_000_000, 1.0) == 1.0
-    assert profiling.throughput_tmacs(2 * 10 ** 12, 2.0) == 1.0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
+    with torch.profiler.profile():          # a session no one takes from
+        with profiling.span("left over"):
+            pass
     with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("my_stage"):
-            torch.ones((16, 16)) @ torch.ones((16, 16))
-    path = tmp_path / "tr" / "trace.json"
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "my_stage" for e in events)
+        with profiling.span("my_stage"):
+            with profiling.span("my_step", pinned_bytes=64):
+                torch.ones((16, 16)) @ torch.ones((16, 16))
+    with open(tmp_path / "tr" / "trace.json") as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "aten::matmul" in names and not {"my_stage", "my_step"} & names
+    with open(tmp_path / "tr" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["clock"] == "unix_ns"
+    outer, inner = spans["spans"]
+    assert (outer["name"], outer["parent"]) == ("my_stage", None)
+    assert (inner["name"], inner["parent"], inner["pinned_bytes"]) == (
+        "my_step", 0, 64)
+    assert (outer["start_ns"] <= inner["start_ns"] <= inner["end_ns"]
+            <= outer["end_ns"])
+    assert profiling.RECORDER.spans == []   # trace took what it wrote
 
 
 def test_checks():
