@@ -168,6 +168,9 @@ WATCHDOG_S = 900          # a hang ends as a traceback and a non-zero exit
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (data sheet)
 BOOST_HZ = 1.98e9         # H100 SXM boost clock (data sheet)
+PEAK_F32_OPS = 67e12      # H100 SXM float32 rate, CUDA cores (data sheet)
+F32_U = 2.0 ** -24        # float32 unit roundoff
+G_BATCH = 8               # kernel G's gate at the hyper cell's batch
 FP32_FLOPS = 67e12        # H100 SXM float32, no tensor cores (data sheet)
 # The least dependent chain of one rANS encode step, the bound of kernels
 # B, D and H (the same function).  freq is known a group ahead, so all
@@ -459,6 +462,28 @@ def check_encode_sass(fn: str, chunk: str) -> None:
                              f"staged instance")
 
 
+def g_name(mangled: str) -> str:
+    """'deconv5s2_f32_kernel<TQ, TR, R, TN, NG, KC, STAGES, MINB>' of a
+    kernel G instance's mangled name, or ''."""
+    found = re.search(r"deconv5s2_f32_kernelI((?:Li\d+E)+)E", mangled)
+    if not found:
+        return ""
+    args = ", ".join(re.findall(r"Li(\d+)E", found.group(1)))
+    return f"deconv5s2_f32_kernel<{args}>"
+
+
+def check_g_sass(fn: str, chunk: str) -> None:
+    """Kernel G multiplies on the CUDA cores alone: FFMA, and no tensor-core
+    instruction (no TF32 or bf16 rounding of its operands)."""
+    counts = {op: len(re.findall(r"\b" + op + r"\b", chunk))
+              for op in ("FFMA", "FMUL", "FADD", "HMMA", "HGMMA", "IMMA",
+                         "DMMA", "LDS", "LDGSTS", "BAR")}
+    log(f"  SASS {g_name(fn)}: {counts}")
+    if not counts["FFMA"] or (counts["HMMA"] + counts["HGMMA"]
+                              + counts["IMMA"] + counts["DMMA"]):
+        raise AssertionError(f"{fn}: no FFMA, or a tensor-core instruction")
+
+
 def report_conv_build(lib_path: str, build_log: str) -> None:
     """Each kernel's ptxas lines (registers, static shared memory, spills)
     and the SASS: each conv kernel must hold int8 tensor-core instructions
@@ -477,7 +502,7 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
             short = (f"{CONV_KERNEL}<WM={tile.group(1)}, MF={tile.group(2)}, "
                      f"NF={tile.group(3)}> in {src}.cu"
                      if tile else decode_name(name) or encode_name(name) or
-                     dense_name(name) or
+                     dense_name(name) or g_name(name) or
                      re.search(r"[a-z][a-z_]*kernel", name)[0])
             log(f"  ptxas {short}: {line.split(':', 1)[-1].strip()}")
     from simple_image_compression_network_tpu_torch import _build
@@ -488,9 +513,13 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         return
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120, check=True)
-    n_conv = n_dec = n_enc = n_dense = 0
+    n_conv = n_dec = n_enc = n_dense = n_g = 0
     for chunk in res.stdout.split("Function : ")[1:]:
         fn = chunk.split("\n", 1)[0].strip()
+        if g_name(fn):
+            n_g += 1
+            check_g_sass(fn, chunk)
+            continue
         if dense_name(fn):
             n_dense += 1
             check_dense_sass(fn, chunk)
@@ -520,15 +549,17 @@ def report_conv_build(lib_path: str, build_log: str) -> None:
         if counts["IMMA"] + counts["IGMMA"] == 0 or counts["IDP4A"]:
             raise AssertionError(f"{fn}: no int8 tensor-core instruction, "
                                  f"or IDP4A left")
-    if not n_conv or n_dec != 4 or n_enc != 4 or n_dense != 4:
+    if not n_conv or n_dec != 4 or n_enc != 4 or n_dense != 4 or n_g != 2:
         raise AssertionError(f"{n_conv} conv, {n_dec} decode, {n_enc} "
-                             f"compact encode and {n_dense} dense encode "
-                             f"kernel instances in the library's SASS")
+                             f"compact encode, {n_dense} dense encode and "
+                             f"{n_g} kernel G instances in the library's "
+                             f"SASS")
     log(f"SASS: {n_conv} conv kernel instances, each with int8 tensor-core "
         f"instructions and no IDP4A; {n_dec} decode kernel instances, each "
         f"with one barrier a step; {n_enc} compact encode instances, none "
         f"with a barrier in its step loop; {n_dense} dense encode "
-        f"instances, none with a MUFU")
+        f"instances, none with a MUFU; {n_g} kernel G instances, FFMA and "
+        f"no tensor-core instruction")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1578,8 +1609,10 @@ def time_layers(rng, batch: int, dev) -> dict:
 def counted():
     """name -> the wrapper that counts that kernel's launches."""
     from simple_image_compression_network_tpu_torch.codec import cuda_rans
-    from simple_image_compression_network_tpu_torch.ops import cuda_conv
+    from simple_image_compression_network_tpu_torch.ops import (
+        cuda_conv, cuda_deconv)
     return {"conv3x3_s1_int8": cuda_conv.conv3x3_s1_int8,
+            "deconv5s2_f32": cuda_deconv.deconv5s2_f32,
             "conv_sparse_int8": cuda_conv.conv_sparse_int8,
             "rans_encode_dense": cuda_rans.encode_dense,
             "rans_encode": cuda_rans.encode_batch_compact,
@@ -2038,6 +2071,11 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec,
     counts = read_counts(tag, ("rans_encode", "rans_decode",
                                "rans_encode_ctx", "rans_decode_ctx"))
     mem = torch.cuda.max_memory_allocated()
+    g = counted()["deconv5s2_f32"].launches
+    log(f"{tag}: kernel G launches over 2 decoded batches: {g}")
+    if g != 2 * 4:
+        raise AssertionError(f"{tag}: kernel G launched {g} times over 2 "
+                             f"decoded batches, not 4 a batch")
 
     y, z, _ = codec.encode_parts(x)
     require_equal(f"{tag} y_hat == round(y)", y_hat, y)
@@ -2077,6 +2115,128 @@ def hyper_path(seed: int, batch: int, dev, card: str, codec,
         f"({mp / (t2 - t1)} MP/s), peak device memory {mem} bytes; "
         f"y_hat == round(y), z_hat == round(z)")
     return counts
+
+
+def g_s_inputs(codec, seed: int, batch: int, dev) -> list:
+    """(layer, its input) for each of the trained g_s's four transposed
+    convs at 768x512: seeded images through g_a, rounded, then through
+    g_s, each layer's input taken as the layer is called."""
+    model = codec.model
+    x = torch.from_numpy(make_images(seed + 3, batch)).to(dev)
+    y, _ = model.analysis_arrays(x.to(torch.float32) / 255.0)
+    layers = [getattr(model.g_s, f"ConvTranspose_{i}") for i in range(4)]
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].clone())) for m in layers]
+    try:
+        model.decode_arrays(torch.round(y))
+    finally:
+        for h in hooks:
+            h.remove()
+    return list(zip(layers, seen))
+
+
+def kernel_g_path(codec, seed: int, dev) -> list:
+    """Kernel G at g_s's four layers of the trained scale model, B = 8 at
+    768x512 (the hyper cell's shapes), each against a float64 golden
+    (``conv_transpose2d`` in float64, an independent form) and against its
+    plain version on the card; run twice, bitwise equal; each image alone
+    bitwise equal to it in the batch.  Tolerance: a float32 sum of n = 9 C
+    terms (the most an output phase takes) in any order is within gamma_n
+    = n u / (1 - n u) of the sum of the terms' magnitudes (u = 2^-24,
+    Higham's bound for recursive summation), and the bias add within u of
+    the result; any fixed order passes, a wrong tap or weight does not
+    (one term is ~1/n of that sum).  Then its device time per layer
+    beside its bound, the plain version's, and cuDNN float32 without TF32,
+    deterministic (the dgrad g_s ran on) and not, by CUDA events around 20
+    calls (cuDNN's may wait on the host).  Returns one dict a layer."""
+    import torch.nn.functional as F
+    from simple_image_compression_network_tpu_torch.ops import cuda_deconv
+
+    def flags(det: bool):
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                          deterministic=det, allow_tf32=False)
+
+    rows = []
+    for i, (layer, x) in enumerate(g_s_inputs(codec, seed, G_BATCH, dev)):
+        name = f"ConvTranspose_{i}"
+        w, bias = layer.weight, layer.bias
+        b, c, h, wd = x.shape
+        o = w.shape[1]
+        with torch.no_grad():
+            before = cuda_deconv.deconv5s2_f32.launches
+            got = layer(x)
+            if cuda_deconv.deconv5s2_f32.launches != before + 1:
+                raise AssertionError(f"g_s.{name} did not launch kernel G")
+            require_identical(f"kernel G {name}: two runs", layer(x), got)
+            for k in range(b):
+                require_identical(f"kernel G {name}: image {k} alone",
+                                  layer(x[k:k + 1]), got[k:k + 1])
+            pick = cuda_deconv.pick_variant(o)
+            packed = cuda_deconv.pack_deconv5s2(w, pick)
+            x64, w64 = x.double(), w.double()
+            gold = F.conv_transpose2d(x64, w64, bias.double(), stride=2,
+                                      padding=1)[..., :-1, :-1]
+            mag = F.conv_transpose2d(x64.abs(), w64.abs(), None, stride=2,
+                                     padding=1)[..., :-1, :-1]
+            n = 9 * c
+            tol = n * F32_U / (1 - n * F32_U) * mag + F32_U * gold.abs()
+            del mag
+            with flags(True):
+                plain = cuda_deconv.deconv5s2_f32_plain(x, w, bias)
+            g_err = (got.double() - gold).abs()
+            p_err = (plain.double() - gold).abs()
+            gp = (got.double() - plain.double()).abs()
+            row = {"layer": name, "shape": [b, c, h, wd, o],
+                   "g_max_abs_err": g_err.max().item(),
+                   "g_err_over_tol": (g_err / tol).max().item(),
+                   "plain_max_abs_err": p_err.max().item(),
+                   "plain_err_over_tol": (p_err / tol).max().item(),
+                   "g_minus_plain_over_2tol": (gp / (2 * tol)).max().item()}
+            del gold, tol, g_err, p_err, gp, plain
+            if max(row["g_err_over_tol"], row["g_minus_plain_over_2tol"]) > 1:
+                raise AssertionError(f"kernel G {name}: {row}")
+            row["ms"] = kernel_ms(lambda: cuda_deconv._launch(
+                x, packed, bias, o, pick))
+            row["variant"] = pick
+            row["wrapper_ms"] = cuda_ms(lambda: layer(x), 20)
+            with flags(True):
+                row["plain_ms"] = cuda_ms(
+                    lambda: cuda_deconv.deconv5s2_f32_plain(x, w, bias), 3)
+                row["cudnn_det_ms"] = cuda_ms(lambda: F.conv_transpose2d(
+                    x, w, bias, stride=2, padding=1), 20)
+            with flags(False):
+                row["cudnn_ms"] = cuda_ms(lambda: F.conv_transpose2d(
+                    x, w, bias, stride=2, padding=1), 20)
+        flops = 2 * b * h * wd * 25 * c * o
+        n_bytes = 4 * (x.numel() + w.numel() + o + got.numel())
+        row["bound_ms"] = max(flops / PEAK_F32_OPS,
+                              n_bytes / PEAK_BYTES) * 1e3
+        row["bound_by"] = ("operations" if flops / PEAK_F32_OPS
+                           >= n_bytes / PEAK_BYTES else "bytes")
+        log(f"kernel G {name} B={b} {c}->{o} at {h}x{wd}: {row['ms']:.4f} ms "
+            f"(variant {pick}; {row['bound_ms'] / row['ms']:.1%} of its "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; wrapper "
+            f"{row['wrapper_ms']:.4f}, plain "
+            f"{row['plain_ms']:.3f}); cuDNN float32 no TF32 deterministic "
+            f"{row['cudnn_det_ms']:.4f} ms, not deterministic "
+            f"{row['cudnn_ms']:.4f} ms; max |G - float64| "
+            f"{row['g_max_abs_err']:.3g} ({row['g_err_over_tol']:.3g} of the "
+            f"bound), plain {row['plain_max_abs_err']:.3g} "
+            f"({row['plain_err_over_tol']:.3g}), |G - plain| "
+            f"{row['g_minus_plain_over_2tol']:.3g} of twice the bound; two "
+            f"runs and each image alone bitwise equal")
+        rows.append(row)
+    tot = {k: sum(r[k] for r in rows) for k in
+           ("ms", "bound_ms", "plain_ms", "cudnn_det_ms", "cudnn_ms")}
+    log(f"kernel G, g_s's 4 layers at B={G_BATCH}: {tot['ms']:.4f} ms, "
+        f"{tot['bound_ms'] / tot['ms']:.1%} of the bound "
+        f"{tot['bound_ms']:.4f}; cuDNN deterministic {tot['cudnn_det_ms']:.4f}"
+        f", not deterministic {tot['cudnn_ms']:.4f}; plain "
+        f"{tot['plain_ms']:.3f}")
+    log(json.dumps({"kernel_g": rows}))
+    return rows
 
 
 def require_identical(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -4631,6 +4791,8 @@ def main() -> int:
         dense = dense_encode_path(args.batch, golden)
     with phase("hyper path at 768x512"):
         hyper = hyper_path(args.seed, args.batch, dev, smi, codec)
+    with phase(f"kernel G at g_s's four layers, B = {G_BATCH}, 768x512"):
+        kernel_g_path(codec, args.seed, dev)
     with phase("mean-scale hyper path at 768x512"):
         meanscale = meanscale_path(args.seed, args.batch, dev, smi, ms_codec,
                                    codec, errs)

@@ -47,6 +47,7 @@ _SIGNATURES = {
                              _I, _I, _P],
     "sicn_rans_encode_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P],
+    "sicn_deconv5s2_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sicn_rans_decode_ctx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
 }

@@ -26,7 +26,10 @@ without gradients either way.
 These float convolutions ran outside Pallas in the JAX package, so here they
 are PyTorch's.  On the card they run with deterministic cuDNN algorithms and,
 in float32, without TF32: the encoder and the decoder must derive
-bitwise-equal scales (and means) from the same z_hat.
+bitwise-equal scales (and means) from the same z_hat.  g_s's transposed
+convs are the exception: where no gradient is needed and the input is
+float32 they run on kernel G (``ops/cuda_deconv.py``), full float32 in one
+fixed summation order, and on the CPU on its plain version.
 
 ``dtype=torch.bfloat16`` is the serving fast path, as the JAX package's
 ``dtype=jnp.bfloat16``: parameters stay float32 (one checkpoint drives both
@@ -47,6 +50,7 @@ from torch import nn
 
 from ..codec import entropy
 from ..codec.entropy import FactorizedEntropy
+from ..ops import cuda_deconv
 from ..ops.gdn import GDN
 from ..utils import weights_io
 from ..utils.device import resolve_device
@@ -132,6 +136,27 @@ class _Deconv(_FlaxInit, nn.ConvTranspose2d):
             self.padding)[..., :-1, :-1], self.bias)
 
 
+class _SynthesisDeconv(_Deconv):
+    """g_s's transposed conv: ``_Deconv``'s parameters and names, on kernel
+    G (its plain version on the CPU) where the input is float32 and no
+    gradient is needed (grad mode off, or neither the input nor a parameter
+    requires grad).  Otherwise, in training and in bf16, it is ``_Deconv``.
+    h_s keeps ``_Deconv`` on deterministic cuDNN: its scales must be the
+    same bits at both ends of the codec."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout)
+        self._packs = {}   # kernel G's packed weights by variant
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32 or (torch.is_grad_enabled() and (
+                x.requires_grad or self.weight.requires_grad
+                or self.bias.requires_grad)):
+            return super().forward(x)
+        return cuda_deconv.deconv5s2_f32(x.contiguous(), self.weight,
+                                         self.bias, self._packs)
+
+
 class AnalysisTransform(nn.Module):
     """g_a: image (B, 3, X, Y) -> latent y (B, M, X/16, Y/16), float32."""
 
@@ -159,7 +184,8 @@ class SynthesisTransform(nn.Module):
         super().__init__()
         self.dtype = dtype
         for i, (cin, cout) in enumerate(((m, n), (n, n), (n, n), (n, 3))):
-            setattr(self, f"ConvTranspose_{i}", _Deconv(cin, cout))
+            setattr(self, f"ConvTranspose_{i}",
+                    _SynthesisDeconv(cin, cout))
             if i < 3:
                 setattr(self, f"GDN_{i}", GDN(cout, inverse=True))
 

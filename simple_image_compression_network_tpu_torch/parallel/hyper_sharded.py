@@ -66,8 +66,9 @@ def deconv_tile(layer: _Deconv, h: torch.Tensor, mesh: Mesh,
     rows, as ``conv_tile``: output rows [2a, 2b) read input rows a - 1 ..
     b, a halo of 1 on each side.  The layer's own forward on the extended
     tile (input rows a - 1 .. b) gives output rows 2a - 2 .. 2b + 1; the
-    first and last two are cut.  The layer keeps its own pads, so cuDNN
-    sees the whole image's convolution on fewer rows."""
+    first and last two are cut.  The layer keeps its own pads, so it sees
+    the whole image's convolution on fewer rows (g_s's layers on kernel G
+    give the whole image's bits: it sums every output in one order)."""
     hx = spatial.halo_exchange_grad(h, 1, mesh, axis, 2)
     return layer(hx)[..., 2:-2, :]
 
